@@ -1,0 +1,11 @@
+from mcalf_torch.models.forward import AbsorptionModel, CCGS, CLIGHT_KMS, TAU_CONST
+from mcalf_torch.models.torch_model import TorchForward, make_torch_forward
+
+__all__ = [
+    "AbsorptionModel",
+    "TorchForward",
+    "make_torch_forward",
+    "CCGS",
+    "CLIGHT_KMS",
+    "TAU_CONST",
+]

@@ -1,0 +1,411 @@
+"""Batched torch forward model + likelihood (the device compute path).
+
+Port of :mod:`mcalf_tpu.models.jax_model`.  The problem is split as in the
+JAX package into *static structure* (:class:`StaticSpec`) and *constants*
+(:func:`build_consts`, numpy, built in float64 on the host and cast to
+float32).  :func:`consts_from_numpy` carries that dict onto a device, and
+:class:`TorchForward` holds it as ``nn.Module`` buffers.
+
+The likelihood on a CUDA device runs the fused kernel
+(:func:`mcalf_torch.ops.voigt_cuda.fused_loglike`); on the CPU it runs the
+kernel's plain PyTorch version.  Only the Harris regime is ported: a model
+with a strongly damped transition raises at construction.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from mcalf_torch.models.forward import CCGS, TAU_CONST, AbsorptionModel
+from mcalf_torch.ops.convolve import FWHM_TO_SIGMA, gaussian_kernel, lsf_convolve
+from mcalf_torch.ops.faddeeva import (
+    HARRIS_A_MAX,
+    HJERT_WIN_TMIN,
+    hjert_harris,
+    hjert_harris_win,
+)
+from mcalf_torch.ops.voigt_cuda import check_supported, fused_loglike
+
+__all__ = [
+    "StaticSpec",
+    "static_spec",
+    "build_consts",
+    "consts_from_numpy",
+    "fused_args",
+    "loglike_from_fused",
+    "loglike_core",
+    "loglike_cube_core",
+    "reconstruct_core",
+    "TorchForward",
+    "make_torch_forward",
+]
+
+
+@dataclass(frozen=True)
+class StaticSpec:
+    """Static structure of a fit problem (shapes + flags), as
+    :class:`mcalf_tpu.models.jax_model.StaticSpec` without the Pallas
+    switches."""
+
+    ndim: int
+    npix: int
+    ntrans: int
+    startind: int
+    freecont: bool
+    freespecres: bool
+    half: int
+    conv_mode: str
+    asymmlike: bool
+    has_gpriors: bool
+    #: per-transition flag: the prior bound on the damping a is below
+    #: HARRIS_A_MAX, so the Harris expansion is accurate for every sample
+    harris: tuple = ()
+    #: per-transition wing threshold on u^2 (0.0 = plain Harris): u^2 >=
+    #: win_tmin[t] takes hjert_wing, with amp_max * e^{-tmin} < 1e-8 in tau
+    win_tmin: tuple = ()
+
+
+def static_spec(
+    model: AbsorptionModel, conv_mode: str = "same_edge", gpriors: bool = False
+) -> StaticSpec:
+    tab = model.transition_table()
+    # Worst-case damping per transition over the prior: a is maximal at the
+    # LOWER b bound (a = gamma lambda0 / (4 pi b)).
+    b_lo_kms = model.bounds_lo[tab["pidx"] + 2]
+    dnu_min = b_lo_kms * 1e5 * (1e8 / tab["wrest"])
+    a_max = tab["gamma"] / (4.0 * np.pi * dnu_min)
+    harris = a_max < HARRIS_A_MAX
+    # Wing-window threshold per transition: the absolute tau error of the
+    # dropped exponential, amp_max * e^{-tmin}, stays below 1e-8, with
+    # amp_max the static prior bound on the tau amplitude; floored at
+    # HJERT_WIN_TMIN.  Harris transitions only.
+    n_max = model.bounds_hi[tab["pidx"]]
+    amp_max = TAU_CONST * 10.0 ** n_max * tab["f"] / dnu_min
+    tmin = np.maximum(HJERT_WIN_TMIN, np.log(np.maximum(amp_max, 1e-30) * 1e8))
+    win_tmin = tuple(float(tm) if h else 0.0 for tm, h in zip(tmin, harris))
+    return StaticSpec(
+        ndim=model.ndim,
+        npix=model.npix,
+        ntrans=int(tab["pidx"].size),
+        startind=model.startind,
+        freecont=model.freecont,
+        freespecres=model.freespecres,
+        half=model.kernel_half_size(),
+        conv_mode=conv_mode,
+        asymmlike=bool(model.asymmlike),
+        has_gpriors=bool(gpriors and model.gpriors is not None),
+        harris=tuple(bool(v) for v in harris),
+        win_tmin=win_tmin,
+    )
+
+
+def build_consts(model: AbsorptionModel, gpriors: bool = False) -> Dict[str, Any]:
+    """Constant tables for one fit problem (numpy).  All host precomputation
+    happens in float64, then casts to f32 -- a copy of
+    :func:`mcalf_tpu.models.jax_model.build_consts`."""
+    tab = model.transition_table()
+    c: Dict[str, Any] = {}
+    # c / lambda [Hz] precomputed on host: full precision in the static part.
+    c["c_over_wave"] = (CCGS / (model.obj_wl / 1e8)).astype(np.float32)     # (P,)
+    # Wing-window grid geometry: pixel index as an affine function of
+    # log(c/lam), fit in f64 on host, plus the grid's max deviation from
+    # that fit.  [log cw[0], alpha, dev].
+    q = np.log(np.asarray(c["c_over_wave"], np.float64))
+    P = q.size
+    alpha = (q[0] - q[-1]) / max(P - 1, 1)
+    if alpha > 0:
+        p_pred = (q[0] - q) / alpha
+        dev = float(np.max(np.abs(np.arange(P) - p_pred)))
+    else:  # degenerate / non-monotone grid
+        alpha, dev = 1.0, float(P)
+    c["wingrid"] = np.array([q[0], alpha, dev], np.float32)
+    c["data"] = model.obj.astype(np.float32)                                # (P,)
+    c["valid"] = model.valid                                                # (P,)
+    c["ivar"] = np.where(
+        model.valid, 1.0 / np.where(model.valid, model.obj_noise, 1.0) ** 2, 0.0
+    ).astype(np.float32)
+    c["noise"] = np.where(model.valid, model.obj_noise, np.inf).astype(np.float32)
+    # 1/noise with invalid pixels zeroed: multiplying residuals by this
+    # excludes them from the asymmlike outlier counts (fused-kernel path).
+    c["inv_noise"] = np.where(
+        model.valid, 1.0 / np.where(model.valid, model.obj_noise, 1.0), 0.0
+    ).astype(np.float32)
+
+    # Per-transition tables.
+    c["pidx"] = tab["pidx"]                                                 # (T,)
+    c["comp_id"] = tab["comp_id"].astype(np.float32)
+    c["is_fill"] = tab["is_fill"]
+    c["nujk"] = (CCGS / (tab["wrest"] / 1e8)).astype(np.float32)
+    c["inv_wrest_cm"] = (1e8 / tab["wrest"]).astype(np.float32)
+    c["gamma"] = tab["gamma"].astype(np.float32)
+    c["f"] = tab["f"].astype(np.float32)
+
+    # High-precision redshift handling: a redshift stored in f32 quantizes
+    # to ~2.4e-7 steps (~1e-5 posterior sigma_z / 40), turning the
+    # likelihood into a STEP function of z whose plateaus/ties measurably
+    # bias nested sampling (-1.65 +/- 0.10 nats on the 1-comp CIV fit vs a
+    # quadrature truth anchor).  Instead the u-argument is assembled as
+    #     u * dnu = D0 + dz * (c/lam),
+    # with D0 = (1 + zmid) c/lam - nu0 precomputed per (transition, pixel)
+    # in float64 on host (zmid = prior midpoint, static) and dz = z - zmid
+    # carried at f32 resolution of the PRIOR WIDTH (eps * 0.02 ~ 2.4e-9 in
+    # z) by deriving it directly from the unit cube (loglike_cube_core).
+    # Residual u error ~ 1e-5 Doppler widths vs ~ 2e-3 for naive f32 z.
+    wave_cm64 = np.asarray(model.obj_wl, np.float64) / 1e8
+    cw64 = CCGS / wave_cm64                                                 # (P,)
+    nu0 = CCGS / (np.asarray(tab["wrest"], np.float64) / 1e8)               # (T,)
+    z_lo = np.asarray(model.bounds_lo, np.float64)[tab["pidx"] + 1]
+    z_hi = np.asarray(model.bounds_hi, np.float64)[tab["pidx"] + 1]
+    zmid = 0.5 * (z_lo + z_hi)
+    c["d0"] = ((1.0 + zmid)[:, None] * cw64[None, :] - nu0[:, None]).astype(
+        np.float32
+    )                                                                       # (T, P)
+    c["zmid"] = zmid.astype(np.float32)                                     # (T,)
+    c["zspan"] = (z_hi - z_lo).astype(np.float32)                           # (T,)
+    c["u_zidx"] = (tab["pidx"] + 1).astype(np.int32)                        # (T,)
+
+    c["contval"] = np.float32(model.contval[0])
+    # Reference JAX path uses specres[0] when fixed; the numpy path uses
+    # max(specres).  Identical for the 1-element case.
+    c["fixed_specres"] = np.float32(
+        model.specres[0] if not model.freespecres else 0.0
+    )
+    c["velstep"] = np.float32(model.velstep)
+    c["const_term"] = np.float32(
+        np.sum(
+            -np.log(1.0 / model.obj_noise[model.valid] ** 2) + np.log(2.0 * np.pi)
+        )
+    )
+    c["cdf4"] = np.float32(model.gauss_cdf[1])
+    c["cdf5"] = np.float32(model.gauss_cdf[2])
+    c["grace"] = np.float32(model.gracenum)
+
+    c["lo"] = model.bounds_lo.astype(np.float32)
+    c["hi"] = model.bounds_hi.astype(np.float32)
+
+    if gpriors and model.gpriors is not None:
+        mu, sig = _parse_gpriors(model.gpriors, model.ndim)
+        use = np.isfinite(sig)
+        c["gp_mu"] = np.where(use, mu, 0.0).astype(np.float32)
+        c["gp_isig2"] = np.where(use, 1.0 / sig**2, 0.0).astype(np.float32)
+        c["gp_norm"] = np.float32(
+            np.sum(np.where(use, np.log(2.0 * np.pi * sig**2), 0.0))
+        )
+
+    return c
+
+
+def _parse_gpriors(gpriors, ndim: int):
+    """Parse the reference's Gpriors format: a flat sequence of 2*ndim
+    entries alternating (value, sigma), with 'none' marking unconstrained
+    dimensions."""
+    mu = np.zeros(ndim)
+    sig = np.full(ndim, np.inf)
+    g = list(gpriors)
+    if len(g) != 2 * ndim:
+        raise ValueError(f"Gpriors must have 2*ndim={2*ndim} entries, got {len(g)}")
+    for i in range(ndim):
+        v, srr = g[2 * i], g[2 * i + 1]
+        if str(v).lower() != "none" and str(srr).lower() != "none":
+            mu[i] = float(v)
+            sig[i] = float(srr)
+    return mu, sig
+
+
+def consts_from_numpy(
+    c: Mapping[str, Any], device: "torch.device | str"
+) -> Dict[str, torch.Tensor]:
+    """Carry a :func:`build_consts` dict (this package's or the JAX
+    package's -- same keys, numpy values) onto ``device``: floats as
+    float32, integer index tables as int64, masks as bool."""
+    out = {}
+    for k, v in c.items():
+        a = np.asarray(v)
+        if a.dtype == np.bool_:
+            t = torch.as_tensor(a.copy(), dtype=torch.bool)
+        elif np.issubdtype(a.dtype, np.integer):
+            t = torch.as_tensor(a.astype(np.int64))
+        else:
+            t = torch.as_tensor(a.astype(np.float32))
+        out[k] = t.to(device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Compute cores: (params, consts, static) -> tensors.
+# ---------------------------------------------------------------------------
+
+def _head(p, c, s: StaticSpec):
+    specres = p[..., 0] if s.freespecres else c["fixed_specres"]
+    if s.freecont:
+        cont = p[..., 1] if s.freespecres else p[..., 0]
+    else:
+        cont = c["contval"]
+    return specres, cont
+
+
+def _line_tables(p, c, s: StaticSpec, dz):
+    """Per-(sample, transition) dz, gain, damping a, Doppler width dnu."""
+    nact = torch.floor(p[..., s.startind])
+    pidx = c["pidx"]
+    N = p[..., pidx]
+    b = p[..., pidx + 2]
+    if dz is None:
+        dz = p[..., pidx + 1] - c["zmid"]
+    dnu = b * 1e5 * c["inv_wrest_cm"]
+    avoigt = c["gamma"] / (4.0 * math.pi * dnu)
+    amp = TAU_CONST * torch.pow(10.0, N) * c["f"] / dnu
+    active = ((c["comp_id"] < nact[..., None]) | c["is_fill"]).to(torch.float32)
+    return dz, active * amp, avoigt, dnu
+
+
+def reconstruct_core(p, c, s: StaticSpec, dz=None):
+    """Model flux (..., P) for physical parameters p (..., ndim), plain
+    PyTorch (Harris regime).  ``dz``: optional high-precision z - zmid
+    (see build_consts); recovered from p in f32 when None."""
+    check_supported(s.harris, s.ntrans, s.npix, s.half)
+    p = torch.as_tensor(p, dtype=torch.float32)
+    specres, cont = _head(p, c, s)
+    dz, gain, avoigt, dnu = _line_tables(p, c, s, dz)
+    tau = torch.zeros(p.shape[:-1] + (s.npix,), dtype=torch.float32, device=p.device)
+    idnu = 1.0 / dnu
+    for t in range(s.ntrans):
+        u = (c["d0"][t] + dz[..., t : t + 1] * c["c_over_wave"]) * idnu[..., t : t + 1]
+        a_t = avoigt[..., t : t + 1]
+        if s.win_tmin and s.win_tmin[t] > 0.0:
+            H = hjert_harris_win(u, a_t, s.win_tmin[t])
+        else:
+            H = hjert_harris(u, a_t)
+        tau = tau + gain[..., t : t + 1] * H
+    flux_model = torch.exp(-tau)
+    if s.half > 0:
+        sigma_pix = (specres / FWHM_TO_SIGMA) / c["velstep"]
+        kernel = gaussian_kernel(sigma_pix.to(torch.float32), s.half)
+        flux_model = lsf_convolve(flux_model, kernel, mode=s.conv_mode)
+    return flux_model * torch.as_tensor(cont)[..., None]
+
+
+def fused_args(p, c, s: StaticSpec, dz=None):
+    """The positional arguments of :func:`fused_loglike` for physical
+    parameters p (..., ndim), flattened to a (B, ...) batch."""
+    T = s.ntrans
+    specres, cont = _head(p, c, s)
+    dz, gain, avoigt, dnu = _line_tables(p, c, s, dz)
+    if s.half > 0:
+        sigma_pix = (specres / FWHM_TO_SIGMA) / c["velstep"]
+        kern = gaussian_kernel(sigma_pix.to(torch.float32), s.half)
+        kern = kern.reshape(-1, 2 * s.half + 1)
+    else:
+        kern = torch.ones((1, 1), dtype=torch.float32, device=p.device)
+    cont = torch.as_tensor(cont, dtype=torch.float32).reshape(-1)
+    return (
+        dz.reshape(-1, T).contiguous(),
+        gain.reshape(-1, T).contiguous(),
+        avoigt.reshape(-1, T).contiguous(),
+        dnu.reshape(-1, T).contiguous(),
+        c["d0"], c["c_over_wave"], c["data"], c["ivar"], c["inv_noise"],
+        kern.contiguous(), cont.contiguous(), c["tmin"],
+    )
+
+
+def loglike_from_fused(p, c, s: StaticSpec, chi2, n4, n5):
+    """Log-likelihood (...) from the fused (B,) chi^2 and asymmlike counts."""
+    batch = p.shape[:-1]
+    ll = -0.5 * (chi2.reshape(batch) + c["const_term"])
+    if s.asymmlike:
+        bad = (n5.reshape(batch) > c["cdf5"] + c["grace"]) | (
+            n4.reshape(batch) > c["cdf4"] + c["grace"]
+        )
+        ll = torch.where(bad, -math.inf, ll)
+    if s.has_gpriors:
+        d = p - c["gp_mu"]
+        ll = ll - 0.5 * (torch.sum(d * d * c["gp_isig2"], dim=-1) + c["gp_norm"])
+    return ll
+
+
+def loglike_core(p, c, s: StaticSpec, dz=None):
+    """tau -> exp -> LSF conv ('same_edge') -> chi^2 (+ asymmlike counts) in
+    one :func:`fused_loglike` call: the kernel on CUDA, its plain twin on
+    the CPU.  Only the Gaussian-prior term stays outside."""
+    if s.conv_mode != "same_edge":
+        raise ValueError(
+            f"the fused likelihood convolves 'same_edge', not {s.conv_mode!r}"
+        )
+    p = torch.as_tensor(p, dtype=torch.float32)
+    chi2, n4, n5 = fused_loglike(
+        *fused_args(p, c, s, dz=dz),
+        harris=s.harris, half=s.half, asymm=s.asymmlike,
+    )
+    return loglike_from_fused(p, c, s, chi2, n4, n5)
+
+
+def cube_to_params_core(u, c):
+    lo, hi = c["lo"], c["hi"]
+    return lo + torch.as_tensor(u, dtype=torch.float32) * (hi - lo)
+
+
+def loglike_cube_core(u, c, s: StaticSpec):
+    # dz derived straight from the unit cube: resolution eps * zspan (~2.4e-9
+    # in z) instead of the f32 redshift's eps * (1+z) ~ 2.4e-7 -- see the
+    # d0/zmid note in build_consts.
+    u = torch.as_tensor(u, dtype=torch.float32)
+    dz = (u[..., c["u_zidx"]] - 0.5) * c["zspan"]
+    return loglike_core(cube_to_params_core(u, c), c, s, dz=dz)
+
+
+# ---------------------------------------------------------------------------
+# Single-problem module.
+# ---------------------------------------------------------------------------
+
+class TorchForward(nn.Module):
+    """Forward model + likelihood of one fit problem, its constants held as
+    buffers on one device.  Every method takes arbitrary leading batch axes
+    on ``p`` (physical parameters, (..., ndim)) or ``u`` (unit cube)."""
+
+    def __init__(self, static: StaticSpec, consts: Mapping[str, torch.Tensor]):
+        super().__init__()
+        check_supported(static.harris, static.ntrans, static.npix, static.half)
+        self.static = static
+        self.ndim = static.ndim
+        self.npix = static.npix
+        device = consts["d0"].device
+        names = list(consts)
+        for k in names:
+            self.register_buffer(k, consts[k])
+        # wing thresholds, the kernel's per-transition mode table
+        tmin = static.win_tmin or (0.0,) * static.ntrans
+        self.register_buffer(
+            "tmin", torch.tensor(tmin, dtype=torch.float32, device=device)
+        )
+        self._names = tuple(names) + ("tmin",)
+
+    def consts(self) -> Dict[str, torch.Tensor]:
+        return {k: getattr(self, k) for k in self._names}
+
+    def loglike_cube(self, u):
+        """(..., ndim) unit-cube points -> (...) log-likelihood."""
+        return loglike_cube_core(u, self.consts(), self.static)
+
+    def cube_to_params(self, u):
+        return cube_to_params_core(u, self.consts())
+
+    def reconstruct(self, p):
+        """(..., ndim) physical parameters -> (..., P) model flux (plain)."""
+        return reconstruct_core(p, self.consts(), self.static)
+
+
+def make_torch_forward(
+    model: AbsorptionModel, device: "torch.device | str", gpriors: bool = False
+) -> TorchForward:
+    """Build the forward model of ``model`` on ``device``.  A CUDA device
+    evaluates the likelihood with the fused kernel; a CPU device with its
+    plain PyTorch version."""
+    s = static_spec(model, gpriors=gpriors)
+    c = consts_from_numpy(build_consts(model, gpriors=gpriors), device)
+    return TorchForward(s, c)

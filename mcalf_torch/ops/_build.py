@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+
+Each library is compiled at first use for ``sm_90a`` with a plain C entry
+point, into ``build/mcalf_torch/<hash>/`` beside the package (a directory
+git ignores), keyed by a hash of the source, the generated header and the
+compiler flags, so an edited source rebuilds and an unchanged one loads
+from the cache.  ``--use_fast_math`` is deliberately absent: it would turn
+``expf`` and the divisions into approximations, and the accuracy bars are
+those of full-precision float32.
+
+Nothing here runs at import time: the CPU tests import every module, and
+this machine-independent code only needs ``nvcc`` when a CUDA tensor asks
+for a kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+from mcalf_torch.ops import faddeeva
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "mcalf_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+class BuiltLibrary(NamedTuple):
+    lib: ctypes.CDLL
+    path: Path
+    #: wall seconds nvcc took in this process (0.0 when loaded from cache)
+    build_seconds: float
+    #: nvcc/ptxas output (registers, shared memory, spills per kernel)
+    log: str
+
+
+def _c_array(vals) -> str:
+    return "{" + ", ".join(f"{float(v)!r}f" for v in vals) + "}"
+
+
+def coefficient_header() -> str:
+    """The kernel's constant tables, generated from ops/faddeeva.py."""
+    lines = [
+        "// Generated by mcalf_torch/ops/_build.py from mcalf_torch/ops/faddeeva.py.",
+        "#pragma once",
+        f"#define MCALF_DAWSN_P1 {_c_array(faddeeva.DAWSN_P1)}",
+        f"#define MCALF_DAWSN_P2 {_c_array(faddeeva.DAWSN_P2)}",
+        f"#define MCALF_DAWSN_P3 {_c_array(faddeeva.DAWSN_P3)}",
+        f"#define MCALF_DAWSN_P4 {_c_array(faddeeva.DAWSN_P4)}",
+        f"#define MCALF_TWO_OVER_SQRTPI {faddeeva.TWO_OVER_SQRTPI!r}f",
+    ]
+    return "\n".join(lines) + "\n"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels are "
+        "built from mcalf_torch/csrc at first use and need the CUDA toolkit"
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> BuiltLibrary:
+    """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
+    src = CSRC / f"{name}.cu"
+    header = coefficient_header()
+    key = hashlib.sha256()
+    key.update(src.read_bytes())
+    key.update(header.encode())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = BUILD_ROOT / f"{name}-{key.hexdigest()[:16]}"
+    lib_path = out_dir / f"lib{name}.so"
+    seconds, log = 0.0, ""
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / f"{name}_coefs.h").write_text(header)
+        tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-o", str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {src}:\n{log}")
+        os.replace(tmp, lib_path)
+    return BuiltLibrary(ctypes.CDLL(str(lib_path)), lib_path, seconds, log)

@@ -1,0 +1,163 @@
+"""End to end through ``python -m mcalf_torch`` on the CPU: config file ->
+fit -> chain files in the JAX CLI's layout, without jax in the process."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mcalf_torch import runner
+from mcalf_torch.cli import main
+
+REPO = Path(__file__).parents[1]
+TESTDATA = REPO / "testdata"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # Small tensors and several test processes sharing the cores: torch's
+    # intra-op thread pool only adds contention here.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+CFG = """
+[input]
+specfile = civ_mock_spec.txt
+wavefit = 6180,6220
+linelist = CIV 1548, CIV 1550
+coldef = Wave, Flux, Err
+solver = jaxns
+specres = 8.0
+
+[pathing]
+datadir = {testdata}/
+outdir = {out}/
+chainfmt = pc_fits_{{0}}
+
+[components]
+ncomp = 1,1
+contval  = 1
+Nrange = 12.0,14.5
+brange = 10.0, 40.0
+zrange = 2.99, 3.01
+
+[run]
+dofit = True
+doplot = False
+{run}
+
+[jaxns_settings]
+max_samples = 600
+num_live_points = 50
+
+[ns_settings]
+num_repeats = 4
+{extra}
+"""
+
+
+def _write_cfg(tmp_path, run="device = cpu", extra=""):
+    cfg = tmp_path / "fit.cfg"
+    cfg.write_text(CFG.format(testdata=TESTDATA, out=tmp_path, run=run, extra=extra))
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def cli_outputs(tmp_path_factory):
+    out = tmp_path_factory.mktemp("torch_e2e")
+    rc = main([str(_write_cfg(out)), "--debug"])
+    assert rc == 0
+    return out
+
+
+def test_cli_writes_chain_files_in_jax_layout(cli_outputs):
+    fits = cli_outputs / "fits"
+    stats = (fits / "pc_fits_0.stats").read_text().splitlines()
+    # the JAX CLI's .stats: the log(Z) line, then '#' comment lines
+    head = stats[0].split()
+    assert head[0] == "log(Z)" and head[1] == ":" and head[3] == "+/-"
+    assert np.isfinite(float(head[2])) and float(head[4]) > 0
+    assert stats[1].startswith("# insertion-rank KS p = ")
+    eq = np.loadtxt(fits / "pc_fits_0_equal_weights.txt", ndmin=2)
+    ndim = 4
+    assert eq.shape == (600, 2 + ndim)
+    assert np.all(eq[:, 0] == 1.0)
+    # physical parameters inside the prior box [ncomp, N, z, b]
+    assert np.all((eq[:, 2] == 1.0) & (eq[:, 3] >= 12.0) & (eq[:, 3] <= 14.5))
+    assert np.all((eq[:, 4] >= 2.99) & (eq[:, 4] <= 3.01))
+    assert np.all(np.isfinite(eq[:, 1]))
+
+
+def test_cli_chain_files_parse_with_jax_readers(cli_outputs):
+    from mcalf_tpu.io.chains import read_equal_weights, read_stats
+
+    lnz, err = read_stats(str(cli_outputs / "fits" / "pc_fits_0.stats"))
+    assert np.isfinite(lnz) and err > 0
+    m = read_equal_weights(str(cli_outputs / "fits" / "pc_fits_0_equal_weights.txt"))
+    assert m.shape[1] == 6
+
+
+def test_port_runs_without_jax(tmp_path):
+    """Importing the port and running a tiny fit never imports jax."""
+    cfg = _write_cfg(tmp_path, extra="max_samples = 150")
+    code = textwrap.dedent(f"""
+        import sys
+        import mcalf_torch, mcalf_torch.runner, mcalf_torch.cli
+        from mcalf_torch.cli import main
+        assert main([{str(cfg)!r}]) == 0
+        assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)
+        print('NOJAX-OK')
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX-OK" in proc.stdout
+
+
+def test_device_default_without_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    cfg = _write_cfg(tmp_path, run="device = default")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main([str(cfg)])
+    # the [run] device default is 'default'
+    with pytest.raises(RuntimeError, match="CUDA"):
+        runner.resolve_device({})
+
+
+@pytest.mark.parametrize(
+    "extra_run,extra_ns,match",
+    [
+        ("seeds = 1,2", "", "seeds"),
+        ("ncomp_grid = True", "", "ncomp_grid"),
+        ("checkpoint = ckpt", "", "checkpoint"),
+        ("", "dynamic = True", "dynamic"),
+        ("", "auto_repeats = True", "auto_repeats"),
+    ],
+)
+def test_unported_branches_raise(tmp_path, extra_run, extra_ns, match):
+    cfg = _write_cfg(tmp_path, run="device = cpu\n" + extra_run, extra=extra_ns)
+    with pytest.raises(NotImplementedError, match=match):
+        main([str(cfg)])
+
+
+def test_pc_settings_resume_not_ported(tmp_path):
+    # [pc_settings] turns the PolyChord resume machinery on by default
+    from mcalf_tpu.config import readconfig
+
+    cp = readconfig(str(_write_cfg(tmp_path)))
+    cp["solver"] = "polychord"
+    cp["pc_settings"] = {"nlive": "50"}
+    with pytest.raises(NotImplementedError, match="checkpoint/resume"):
+        runner.run_fit(cp)
