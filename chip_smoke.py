@@ -2,28 +2,45 @@
 
     python3 chip_smoke.py
 
-Phases, each printing a line:
+Phases, each printing lines tagged with its number:
 
 1. device: requires CUDA (exits non-zero without it) and prints the card's
    name and power limit as nvidia-smi gives them;
-2. build: compiles the fused likelihood kernel from mcalf_torch/csrc;
-3. kernel vs plain: the kernel against its plain PyTorch version on the
-   same inputs at the flagship shapes (T=22, P=1999, K=23), B in {100, 37,
-   1}, a prior-spread and a z-clustered batch, plus the asymmlike
-   multicomponent model: log L to rtol 1e-5 / atol 0.05 with the -inf
-   pattern exact (the JAX package's fused-vs-XLA tolerance);
-4. timing: kernel vs plain at B=100 and B=200 (median of CUDA-event
-   timings);
-5. the slice: ``mcalf_torch.cli.main`` on a copy of testdata/fit.cfg at
+2. build: compiles both kernels (csrc/fused_loglike.cu, csrc/voigt_tau.cu)
+   with one nvcc call and prints ptxas's registers and spills per kernel;
+3. fused kernel vs plain, the same inputs at full width, B in {100, 37, 1},
+   a prior-spread and a z-clustered batch, log L to rtol 1e-5 / atol 0.05
+   with the -inf pattern exact (the JAX package's fused-vs-XLA tolerance):
+   the flagship (T=22, P=1999, K=23, all windowed Harris) and the asymmlike
+   multicomponent model; then the strong-damping branch on the narrow
+   flagship (fit.cfg with brange = 3, 40: all 22 transitions in the full
+   hjert) and the mixed model (CIV 1548 + HI 1215 + filler, T=7, windowed
+   Harris and full hjert);
+4. tau kernel vs plain on the flagship, the narrow flagship and the mixed
+   model, B in {100, 200, 13}: |dtau| / (|tau| + 1e-3) < 3e-5 (the JAX
+   package's tau bar); and reconstruct / chi2 / loglike('wrap') on CUDA
+   each launch the tau kernel once;
+5. timing (median of CUDA-event timings, kernel and plain in turns, the
+   card's name and power limit on every line): the fused kernel on the
+   flagship and the narrow flagship, the tau kernel on both, at B=100 and
+   200, and ``fwd.reconstruct`` per call;
+6. the slices: ``mcalf_torch.cli.main`` on a copy of testdata/fit.cfg at
    full width (ndim 34, nlive 200, B=100, canon_layout, the kernel on),
-   depth cut by max_samples; checks the chain files, logZ and that every
-   likelihood batch went through the kernel;
-6. statistical anchor: the 1-comp CIV fit with 3 seeds against the
-   quadrature evidence of testdata/civ_mock_spec.txt, 4985.51, within 2x
-   the mean logzerr.
+   depth cut by max_samples, then the same on the narrow flagship; checks
+   the chain files, logZ and that every likelihood batch went through the
+   fused kernel;
+7. the tau path: the narrow slice's equal-weight posterior through
+   ``reconstruct``, ``chi2`` and a ``conv_mode='wrap'`` forward's
+   ``loglike`` on the card, against the plain versions on the CPU;
+8. statistical anchors: the 1-comp CIV fit with 3 seeds against the
+   quadrature evidence of testdata/civ_mock_spec.txt, 4985.51, within 2x the
+   mean logzerr; then with brange = 3, 40 (every evaluation in the full
+   hjert) against 4985.30 = 4985.51 + ln(30/37) (the b prior's density
+   changes from 1/30 to 1/37 where the posterior lies).
 
-Then one JSON line with the kernels' launch counts, errors and times, and
-as the last line ``{"ok": true, "device": {...}}``.  Any failure raises.
+Then one JSON line with the kernels' launch counts, errors, times and
+bounds, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
+raises.  The port must not import jax or mcalf_tpu: checked at the end.
 """
 
 from __future__ import annotations
@@ -42,8 +59,30 @@ import torch
 ROOT = Path(__file__).resolve().parent
 TESTDATA = ROOT / "testdata"
 QUADRATURE_LOGZ = 4985.51  # 1-comp CIV on testdata/civ_mock_spec.txt
+NARROW_LOGZ = QUADRATURE_LOGZ + math.log(30.0 / 37.0)  # brange 3, 40
 SLICE_MAX_SAMPLES = 1000
 SLICE_NUM_REPEATS = 544
+
+#: the H100 SXM's published peaks (NVIDIA data sheet, at 700 W): float32
+#: outside the tensor cores, and device memory
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+
+_CIV = dict(
+    fitrange=[(6180.0, 6220.0)], fitlines=["CIV 1548", "CIV 1550"],
+    specres=[8.0], Nrange=[12.0, 14.5], zrange=[2.99, 3.01],
+)
+MODELS = {
+    "flagship": dict(_CIV, ncomp=(8, 11), brange=[10.0, 40.0]),
+    "asymmlike": dict(_CIV, ncomp=(2, 4), nfill=1, brange=[10.0, 40.0],
+                      Asymmlike=True),
+    "narrow": dict(_CIV, ncomp=(8, 11), brange=[3.0, 40.0]),
+    "mixed": dict(
+        fitrange=[(6180.0, 6220.0)], fitlines=["CIV 1548", "HI 1215"],
+        ncomp=(1, 3), nfill=1, specres=[8.0], Nrange=[12.0, 14.5],
+        brange=[5.0, 40.0], zrange=[2.99, 3.01],
+    ),
+}
 
 
 def phase_device() -> str:
@@ -65,29 +104,24 @@ def phase_device() -> str:
 def phase_build() -> None:
     from mcalf_torch.ops._build import load
 
-    built = load("fused_loglike")
-    info = [ln.strip() for ln in built.log.splitlines()
-            if "registers" in ln or "spill" in ln]
+    built = load()
     print(f"[2 build] {built.path.name} built in {built.build_seconds:.2f} s")
-    for ln in info:
-        print(f"[2 build] ptxas: {ln}")
+    # ptxas names each function before its counts: the two kernels and the
+    # device function they call
+    name = "?"
+    for ln in built.log.splitlines():
+        if "entry function" in ln or "Function properties for" in ln:
+            name = next((k for k in ("voigt_tau_kernel", "fused_loglike_kernel",
+                                     "wofz_real_916") if k in ln), name)
+        elif "registers" in ln or "spill" in ln:
+            print(f"[2 build] ptxas {name}: {ln.strip().removeprefix('ptxas info    : ')}")
 
 
-def _flagship(asymm: bool = False):
+def _model(name):
     from mcalf_torch.models import AbsorptionModel
 
-    if asymm:
-        return AbsorptionModel.from_file(
-            str(TESTDATA / "civ_mock_spec_multicomp.txt"),
-            fitrange=[(6180.0, 6220.0)], fitlines=["CIV 1548", "CIV 1550"],
-            ncomp=(2, 4), nfill=1, specres=[8.0], Nrange=[12.0, 14.5],
-            brange=[10.0, 40.0], zrange=[2.99, 3.01], Asymmlike=True,
-        )
     return AbsorptionModel.from_file(
-        str(TESTDATA / "civ_mock_spec_multicomp.txt"),
-        fitrange=[(6180.0, 6220.0)], fitlines=["CIV 1548", "CIV 1550"],
-        ncomp=(8, 11), specres=[8.0], Nrange=[12.0, 14.5],
-        brange=[10.0, 40.0], zrange=[2.99, 3.01],
+        str(TESTDATA / "civ_mock_spec_multicomp.txt"), **MODELS[name]
     )
 
 
@@ -103,33 +137,49 @@ def _batch(ndim, B, clustered, seed, layout):
     return torch.from_numpy(u.astype(np.float32)).cuda()
 
 
+def _fused_args(fwd, u):
+    from mcalf_torch.models import torch_model as tm
+
+    s, c = fwd.static, fwd.consts()
+    dz = (u[..., c["u_zidx"]] - 0.5) * c["zspan"]
+    p = tm.cube_to_params_core(u, c)
+    return p, tm.fused_args(p, c, s, dz=dz)
+
+
+def _tau_args(fused_args):
+    """voigt_tau's arguments out of fused_loglike's."""
+    return fused_args[:6] + fused_args[11:]
+
+
 def _kernel_and_plain(fwd, u):
     from mcalf_torch.models import torch_model as tm
     from mcalf_torch.ops import voigt_cuda
 
     s, c = fwd.static, fwd.consts()
-    dz = (u[..., c["u_zidx"]] - 0.5) * c["zspan"]
-    p = tm.cube_to_params_core(u, c)
-    args = tm.fused_args(p, c, s, dz=dz)
+    p, args = _fused_args(fwd, u)
     kw = dict(half=s.half, asymm=s.asymmlike)
-    k = voigt_cuda.fused_loglike(*args, harris=s.harris, **kw)
+    k = voigt_cuda.fused_loglike(*args, **kw)
     q = voigt_cuda.fused_loglike_plain(*args, **kw)
-    return k, q, tm.loglike_from_fused(p, c, s, *k), tm.loglike_from_fused(p, c, s, *q), args
+    return k, q, tm.loglike_from_fused(p, c, s, *k), tm.loglike_from_fused(p, c, s, *q)
 
 
 def phase_kernel_check() -> float:
     from mcalf_torch.models import make_torch_forward
 
     worst = 0.0
-    for name, model in (("flagship", _flagship()), ("asymmlike", _flagship(True))):
+    for name in ("flagship", "asymmlike", "narrow", "mixed"):
+        model = _model(name)
         fwd = make_torch_forward(model, "cuda")
         s = fwd.static
-        assert all(s.harris)
+        modes = sorted(set(fwd.modes.tolist()))
+        if modes != {"flagship": [1], "asymmlike": [1], "narrow": [2],
+                     "mixed": [1, 2]}[name]:
+            raise AssertionError(f"{name}: transition modes {modes}")
         for B in (100, 37, 1):
             for clustered in (False, True):
                 u = _batch(s.ndim, B, clustered, seed=B + 7 * clustered,
                            layout=model.canon_layout())
-                k, q, lk, lp, _ = _kernel_and_plain(fwd, u)
+                k, q, lk, lp = _kernel_and_plain(fwd, u)
                 torch.cuda.synchronize()
                 ck = k[0].double().cpu().numpy()
                 cq = q[0].double().cpu().numpy()
@@ -148,9 +198,52 @@ def phase_kernel_check() -> float:
                 worst = max(worst, err)
                 print(
                     f"[3 kernel] {name} T={s.ntrans} P={s.npix} K={2 * s.half + 1} "
-                    f"B={B} {'z-clustered' if clustered else 'spread'}: "
+                    f"modes {modes} B={B} "
+                    f"{'z-clustered' if clustered else 'spread'}: "
                     f"max |dlogL| {err:.3g}, finite {int(fin.sum())}/{B}"
                 )
+    return worst
+
+
+def phase_tau_check() -> float:
+    """Returns the largest |dtau| (the check is relative, see above)."""
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.ops import voigt_cuda
+
+    worst = 0.0
+    for name in ("flagship", "narrow", "mixed"):
+        model = _model(name)
+        fwd = make_torch_forward(model, "cuda")
+        s = fwd.static
+        for B in (100, 200, 13):
+            u = _batch(s.ndim, B, B == 200, seed=3 * B, layout=model.canon_layout())
+            args = _tau_args(_fused_args(fwd, u)[1])
+            k = voigt_cuda.voigt_tau(*args)
+            q = voigt_cuda.voigt_tau_plain(*args)
+            torch.cuda.synchronize()
+            err = float(((k - q).abs() / (q.abs() + 1e-3)).max())
+            if not err < 3e-5:
+                raise AssertionError(f"tau {name} B={B}: max rel err {err}")
+            abs_err = float((k - q).abs().max())
+            worst = max(worst, abs_err)
+            print(
+                f"[4 tau] {name} T={s.ntrans} P={s.npix} B={B}: max |dtau|/(|tau|+1e-3) "
+                f"{err:.3g}, max |dtau| {abs_err:.3g}, max tau {float(q.max()):.4g}"
+            )
+        # the entry points: one tau launch per call on the card
+        p = _fused_args(fwd, _batch(s.ndim, 16, False, seed=1, layout=None))[0]
+        wrap = make_torch_forward(model, "cuda", conv_mode="wrap")
+        for what, fn in (("reconstruct", fwd.reconstruct), ("chi2", fwd.chi2),
+                         ("loglike wrap", wrap.loglike)):
+            before = voigt_cuda.tau_launches
+            out = fn(p)
+            torch.cuda.synchronize()
+            if voigt_cuda.tau_launches != before + 1 or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name} {what}: tau launches "
+                                     f"{voigt_cuda.tau_launches - before}, finite "
+                                     f"{bool(torch.isfinite(out).all())}")
+        print(f"[4 tau] {name}: reconstruct, chi2, loglike(wrap) each launched "
+              "voigt_tau once")
     return worst
 
 
@@ -170,35 +263,115 @@ def _median_ms(fn, reps=30):
     return float(np.median(times))
 
 
+# Operations per (sample, transition, pixel) pair by the branch it takes,
+# counted from csrc/voigt_h.cuh (a fused multiply-add counts 2, every other
+# arithmetic operation, division or transcendental 1; compares and selects
+# 0).  Each count includes forming u (3) and adding into tau (2).
+_OPS_HARRIS = {1: 39, 2: 40, 3: 35, 4: 30}  # by Dawson region of t = u^2
+_OPS_WING = 23
+_OPS_916 = 246
+_OPS_ASYM = 43
+#: per (sample, transition) in mode 2: the 27 series denominators, sigma1
+#: and erfcx; per (sample, transition) in any mode: 1/dnu
+_OPS_DAMPED_LINE = 180
+
+
+def _tau_ops(args) -> float:
+    """Operations the tau synthesis needs on these inputs: each (sample,
+    transition, pixel) pair counted by the branch the kernels take for it."""
+    dz, gain, av, dnu, d0, cw, tmin, modes = args
+    B, T = dz.shape
+    ops = float(B * T)
+    for t, (mode, tm) in enumerate(zip(modes.tolist(), tmin.tolist())):
+        u = (d0[t].double() + dz[:, t : t + 1].double() * cw.double()).float()
+        u = u / dnu[:, t : t + 1]
+        u2 = u * u
+        if mode == 2:
+            near = int((u2 + av[:, t : t + 1] ** 2 < 111.0).sum())
+            ops += near * _OPS_916 + (u2.numel() - near) * _OPS_ASYM
+            ops += B * _OPS_DAMPED_LINE
+            continue
+        harris = u2 < tm if mode == 1 else torch.ones_like(u2, dtype=torch.bool)
+        ops += int((~harris).sum()) * _OPS_WING
+        edges = (2.25, 6.25, 16.0, math.inf)
+        lo = -1.0
+        for region, hi in enumerate(edges, start=1):
+            ops += int((harris & (u2 > lo) & (u2 <= hi)).sum()) * _OPS_HARRIS[region]
+            lo = hi
+    return ops
+
+
+def _bound(args, fused: bool, half: int = 0):
+    """(bound ms, 'bytes' or 'operations'): the larger of the bytes the
+    call must move over the memory rate and its operations over the
+    float32 rate."""
+    dz, _, _, _, d0, cw = args[:6]
+    B, T = dz.shape
+    P = cw.shape[0]
+    ops = _tau_ops(_tau_args(args) if fused else args)
+    nbytes = 4 * (4 * B * T + T * P + P + 2 * T)
+    if fused:
+        K = 2 * half + 1
+        kern, cont = args[9], args[10]
+        ops += B * (P + 2 * K * max(P - 2 * half, 0) + 4 * P)  # exp, LSF, chi^2
+        nbytes += 4 * (3 * P + kern.numel() + cont.numel() + 3 * B)
+    else:
+        nbytes += 4 * B * P
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def phase_timing(smi: str) -> dict:
     from mcalf_torch.models import make_torch_forward
     from mcalf_torch.ops import voigt_cuda
 
-    fwd = make_torch_forward(_flagship(), "cuda")
-    s = fwd.static
     out = {}
-    for B in (100, 200):
-        u = _batch(s.ndim, B, False, seed=B, layout=None)
-        args = _kernel_and_plain(fwd, u)[-1]
-        kw = dict(half=s.half, asymm=False)
-        ms_k = _median_ms(lambda: voigt_cuda.fused_loglike(*args, harris=s.harris, **kw))
-        ms_p = _median_ms(lambda: voigt_cuda.fused_loglike_plain(*args, **kw), reps=10)
-        ms_cube = _median_ms(lambda: fwd.loglike_cube(u))
-        out[B] = (ms_k, ms_p)
-        print(
-            f"[4 timing] B={B}: kernel {ms_k * 1e3 / B:.3f} us/eval "
-            f"({B / ms_k * 1e3:.4g} evals/s, {ms_k:.4f} ms/call); plain "
-            f"{ms_p * 1e3 / B:.3f} us/eval ({B / ms_p * 1e3:.4g} evals/s); "
-            f"loglike_cube {ms_cube:.4f} ms/call  [{smi}]"
-        )
+    for name in ("flagship", "narrow"):
+        fwd = make_torch_forward(_model(name), "cuda")
+        s = fwd.static
+        for B in (100, 200):
+            u = _batch(s.ndim, B, False, seed=B, layout=None)
+            p, args = _fused_args(fwd, u)
+            targs = _tau_args(args)
+            kw = dict(half=s.half, asymm=False)
+            fused = lambda: voigt_cuda.fused_loglike(*args, **kw)
+            fused_plain = lambda: voigt_cuda.fused_loglike_plain(*args, **kw)
+            tau = lambda: voigt_cuda.voigt_tau(*targs)
+            tau_plain = lambda: voigt_cuda.voigt_tau_plain(*targs)
+            # kernel and plain in turns: plain, kernel, kernel, plain
+            fp = [_median_ms(fused_plain, reps=10)]
+            fk = [_median_ms(fused), _median_ms(fused)]
+            fp.append(_median_ms(fused_plain, reps=10))
+            tp = [_median_ms(tau_plain, reps=10)]
+            tk = [_median_ms(tau), _median_ms(tau)]
+            tp.append(_median_ms(tau_plain, reps=10))
+            ms_cube = _median_ms(lambda: fwd.loglike_cube(u))
+            ms_rec = _median_ms(lambda: fwd.reconstruct(p))
+            fb, fby = _bound(args, True, s.half)
+            tb, tby = _bound(targs, False)
+            rec = dict(
+                fused=(float(np.mean(fk)), float(np.mean(fp)), fb, fby),
+                tau=(float(np.mean(tk)), float(np.mean(tp)), tb, tby),
+            )
+            out[name, B] = rec
+            print(
+                f"[5 timing] {name} B={B}: fused kernel {fk[0]:.4f}/{fk[1]:.4f} ms "
+                f"({rec['fused'][0] * 1e3 / B:.3f} us/eval), plain "
+                f"{fp[0]:.2f}/{fp[1]:.2f} ms, bound {fb:.4f} ms ({fby}); "
+                f"voigt_tau {tk[0]:.4f}/{tk[1]:.4f} ms, plain {tp[0]:.2f}/{tp[1]:.2f} ms, "
+                f"bound {tb:.4f} ms ({tby}); loglike_cube {ms_cube:.4f} ms/call, "
+                f"reconstruct {ms_rec:.4f} ms/call  [{smi}]"
+            )
     return out
 
 
-def _write_cfg(path: Path, outdir: Path) -> None:
+def _write_cfg(path: Path, outdir: Path, brange=None) -> None:
     text = (TESTDATA / "fit.cfg").read_text()
     text = text.replace("datadir = testdata/", f"datadir = {TESTDATA}/")
     text = text.replace("outdir = testdata/output/", f"outdir = {outdir}/")
     text = text.replace("doplot = True", "doplot = False")
+    if brange is not None:
+        text = text.replace("brange = 10.0, 40.0", f"brange = {brange}")
     text += (
         "\n[ns_settings]\n"
         f"max_samples = {SLICE_MAX_SAMPLES}\n"
@@ -207,12 +380,14 @@ def _write_cfg(path: Path, outdir: Path) -> None:
     path.write_text(text)
 
 
-def phase_slice(tmp: Path) -> dict:
+def phase_slice(tmp: Path, name: str, brange=None) -> dict:
     from mcalf_torch import cli, runner
     from mcalf_torch.ops import voigt_cuda
 
-    cfg = tmp / "fit.cfg"
-    _write_cfg(cfg, tmp)
+    out = tmp / name
+    out.mkdir()
+    cfg = out / "fit.cfg"
+    _write_cfg(cfg, out, brange)
     results = []
     run_fit = runner.run_fit
 
@@ -247,7 +422,7 @@ def phase_slice(tmp: Path) -> dict:
     if launches < batches:
         raise AssertionError(f"{launches} kernel launches < {batches} batches")
     print(
-        f"[5 slice] flagship ndim=34 nlive=200 B=100 num_repeats="
+        f"[6 slice] {name} ndim=34 nlive=200 B=100 num_repeats="
         f"{SLICE_NUM_REPEATS} max_samples={SLICE_MAX_SAMPLES}: "
         f"{res.n_iter} steps, n_like={res.n_like}, wall {wall:.2f} s, "
         f"{res.n_like / wall:.4g} evals/s, logZ={logz:.3f} "
@@ -255,19 +430,64 @@ def phase_slice(tmp: Path) -> dict:
         f"kernel launches {launches} >= batches {batches}, "
         f"equal-weight rows {eq.shape[0]}"
     )
-    return {"launches": launches, "wall": wall, "n_like": res.n_like}
+    return {"launches": launches, "wall": wall, "n_like": res.n_like,
+            "posterior": eq[:, 2:]}
 
 
-def phase_anchor() -> None:
+def phase_tau_path(posterior: np.ndarray) -> dict:
+    """The model-evaluation entry points on the narrow slice's posterior:
+    the user's model flux, chi^2 and 'wrap' likelihood, as plotting and
+    model checks call them."""
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.ops import voigt_cuda
+
+    model = _model("narrow")
+    fwd = make_torch_forward(model)
+    wrap = make_torch_forward(model, conv_mode="wrap")
+    p = torch.from_numpy(posterior.astype(np.float32)).cuda()
+    voigt_cuda.tau_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flux = fwd.reconstruct(p)
+    chi2 = fwd.chi2(p)
+    ll = wrap.loglike(p)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = voigt_cuda.tau_launches
+    if launches < 3:
+        raise AssertionError(f"tau path: {launches} voigt_tau launches < 3 calls")
+    for what, x, shape in (("flux", flux, (len(p), model.npix)),
+                           ("chi2", chi2, (len(p),)), ("loglike", ll, (len(p),))):
+        if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"tau path {what}: shape {tuple(x.shape)}, "
+                                 f"finite {bool(torch.isfinite(x).all())}")
+    # against the plain versions on the CPU, on a few rows
+    cpu, cwrap = make_torch_forward(model, "cpu"), make_torch_forward(model, "cpu", conv_mode="wrap")
+    pc = p[:16].cpu()
+    dflux = float((flux[:16].cpu() - cpu.reconstruct(pc)).abs().max())
+    if not dflux < 1e-5:
+        raise AssertionError(f"tau path: max |dflux| {dflux} vs the CPU")
+    for what, got, want, atol in (("chi2", chi2[:16], cpu.chi2(pc), 0.1),
+                                  ("loglike", ll[:16], cwrap.loglike(pc), 0.05)):
+        if not np.allclose(got.double().cpu().numpy(), want.double().numpy(), rtol=1e-5, atol=atol):
+            raise AssertionError(f"tau path {what} differs from the CPU")
+    print(
+        f"[7 tau path] narrow posterior rows {len(p)}: reconstruct, chi2, "
+        f"loglike(wrap) in {wall * 1e3:.2f} ms, voigt_tau launches {launches}; "
+        f"max |dflux| vs CPU plain {dflux:.3g}, min chi2 {float(chi2.min()):.2f}"
+    )
+    return {"launches": launches}
+
+
+def phase_anchor(brange, want: float, tag: str) -> None:
     from mcalf_torch.models import AbsorptionModel, make_torch_forward
     from mcalf_torch.sampler import NSConfig, insertion_rank_test, nested_sample
 
     model = AbsorptionModel.from_file(
-        str(TESTDATA / "civ_mock_spec.txt"), fitrange=[(6180.0, 6220.0)],
-        fitlines=["CIV 1548", "CIV 1550"], ncomp=(1, 1), specres=[8.0],
-        Nrange=[12.0, 14.5], brange=[10.0, 40.0], zrange=[2.99, 3.01],
+        str(TESTDATA / "civ_mock_spec.txt"), **dict(_CIV, ncomp=(1, 1), brange=brange),
     )
     fwd = make_torch_forward(model, "cuda")
+    modes = sorted(set(fwd.modes.tolist()))
     cfg = NSConfig(ndim=4, nlive=200, max_samples=12000)
     logz, err = [], []
     for seed in (0, 1, 2):
@@ -279,47 +499,75 @@ def phase_anchor() -> None:
         logz.append(float(res.logz))
         err.append(float(res.logzerr))
         print(
-            f"[6 anchor] seed {seed}: logZ {res.logz:.3f} +/- {res.logzerr:.3f}, "
-            f"rank p {p:.4f}, n_like {res.n_like}, {res.n_iter} steps, "
-            f"converged={res.termination_reason == 0}, wall {wall:.2f} s"
+            f"[8 anchor] {tag} modes {modes} seed {seed}: logZ {res.logz:.3f} "
+            f"+/- {res.logzerr:.3f}, rank p {p:.4f}, n_like {res.n_like}, "
+            f"{res.n_iter} steps, converged={res.termination_reason == 0}, "
+            f"wall {wall:.2f} s"
         )
     mean, merr = float(np.mean(logz)), float(np.mean(err))
-    ok = abs(mean - QUADRATURE_LOGZ) < 2.0 * merr
+    ok = abs(mean - want) < 2.0 * merr
     print(
-        f"[6 anchor] mean logZ {mean:.3f} vs quadrature {QUADRATURE_LOGZ}: "
-        f"|d| {abs(mean - QUADRATURE_LOGZ):.3f} < 2 x mean logzerr "
-        f"{2 * merr:.3f}: {ok}"
+        f"[8 anchor] {tag} mean logZ {mean:.3f} vs {want:.2f}: "
+        f"|d| {abs(mean - want):.3f} < 2 x mean logzerr {2 * merr:.3f}: {ok}"
     )
     if not ok:
-        raise AssertionError("1-comp anchor outside 2x mean logzerr")
+        raise AssertionError(f"{tag} anchor outside 2x mean logzerr")
 
 
 def main() -> int:
     smi = phase_device()
     phase_build()
     worst = phase_kernel_check()
+    worst_tau = phase_tau_check()
     timing = phase_timing(smi)
     tmp = ROOT / "build" / "chip_smoke"  # git-ignored
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
     try:
-        sl = phase_slice(tmp)
+        flagship = phase_slice(tmp, "flagship")
+        narrow = phase_slice(tmp, "narrow", brange="3.0, 40.0")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase_anchor()
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
-    ms_k, ms_p = timing[100]
-    print(json.dumps({"kernels": [{
-        "name": "fused_loglike",
-        "route": "cuda",
-        "source": "mcalf_torch/csrc/fused_loglike.cu",
-        "replaces": "mcalf_tpu/ops/voigt_pallas.py:213",
-        "launches": sl["launches"],
-        "max_abs_err": worst,
-        "ms": ms_k,
-        "plain_ms": ms_p,
-    }]}))
+    tau_path = phase_tau_path(narrow["posterior"])
+    phase_anchor([10.0, 40.0], QUADRATURE_LOGZ, "1-comp")
+    phase_anchor([3.0, 40.0], NARROW_LOGZ, "1-comp narrow")
+    imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "mcalf_tpu"))
+    if imported:
+        raise AssertionError(f"the port imported {imported[:5]}")
+    f_ms, f_plain, f_bound, f_by = timing["narrow", 100]["fused"]
+    t_ms, t_plain, t_bound, t_by = timing["narrow", 100]["tau"]
+    at = "narrow flagship (fit.cfg, brange 3-40), T=22 P=1999 B=100"
+    print(json.dumps({"kernels": [
+        {
+            "name": "fused_loglike",
+            "route": "cuda",
+            "source": "mcalf_torch/csrc/fused_loglike.cu",
+            "replaces": "mcalf_tpu/ops/voigt_pallas.py:150 and :213",
+            "launches": narrow["launches"],
+            "launches_flagship_slice": flagship["launches"],
+            "max_abs_err": worst,
+            "ms": f_ms,
+            "plain_ms": f_plain,
+            "bound_ms": f_bound,
+            "bound_by": f_by,
+            "library_ms": None,
+            "at": at,
+        },
+        {
+            "name": "voigt_tau",
+            "route": "cuda",
+            "source": "mcalf_torch/csrc/voigt_tau.cu",
+            "replaces": "mcalf_tpu/ops/voigt_pallas.py:132",
+            "launches": tau_path["launches"],
+            "max_abs_err": worst_tau,
+            "ms": t_ms,
+            "plain_ms": t_plain,
+            "bound_ms": t_bound,
+            "bound_by": t_by,
+            "library_ms": None,
+            "at": at,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,16 @@
 """MC-ALF-Torch: the PyTorch/CUDA port of the MC-ALF-TPU absorption-line
 fitter.
 
-The package mirrors :mod:`mcalf_tpu` module by module (``ops``, ``models``,
-``sampler``, ``runner``, ``cli``).  Plain tensor code is PyTorch, run
-eagerly; the fused likelihood is a hand-written CUDA kernel for Hopper
-(``csrc/fused_loglike.cu``, bound in :mod:`mcalf_torch.ops.voigt_cuda`).
-Everything is float32, as in the JAX package.
+The package mirrors :mod:`mcalf_tpu` module by module (``config``,
+``atomic``, ``io``, ``ops``, ``models``, ``sampler``, ``runner``, ``cli``).
+Plain tensor code is PyTorch, run eagerly; the Voigt optical depth and the
+fused likelihood are hand-written CUDA kernels for Hopper (``csrc/``, bound
+in :mod:`mcalf_torch.ops.voigt_cuda`).  Everything is float32, as in the
+JAX package.
 
-The config parser, atomic database, spectrum/chain IO and chain analysis
-are imported from :mod:`mcalf_tpu` (those modules need no jax); nothing in
-this package imports jax.
+The package imports neither jax nor anything of :mod:`mcalf_tpu`: the host
+modules it needs (config parser, atomic database, spectrum and chain IO)
+are copies of the JAX package's, held equal to them by the tests.
 """
 
 import torch

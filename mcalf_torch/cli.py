@@ -12,8 +12,8 @@ from __future__ import annotations
 import argparse
 import os
 
-from mcalf_tpu.config import readconfig
 from mcalf_torch import __version__
+from mcalf_torch.config import readconfig
 
 
 def main(argv=None) -> int:

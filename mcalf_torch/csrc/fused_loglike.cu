@@ -6,65 +6,33 @@
 // Replaces the two fused Pallas TPU kernels of mcalf_tpu/ops/voigt_pallas.py,
 // _ll_kernel and _ll_kernel_win.  The TPU needed a window table because its
 // vector unit evaluates both sides of a select; here a per-pixel branch skips
-// the Harris work on wing pixels by itself, so ONE kernel computes the
-// hjert_harris_win selection per pixel: for a windowed transition (tmin > 0)
-// u^2 < tmin takes the full Harris expansion and the rest the 7-term wing
-// polynomial; a plain-Harris transition (tmin == 0) takes the Harris
-// expansion everywhere.  That is exactly _ll_kernel's value, and
-// _ll_kernel_win's to within its own amp_max * e^{-tmin} < 1e-8 tau bound.
-// Warps diverge only at the edges of each transition's Harris region, one
-// contiguous pixel interval per sample because u is monotone in p.
+// the work a pixel does not need by itself, so ONE kernel computes every
+// transition's H in its mode (voigt_h.cuh): plain Harris (mode 0), the
+// hjert_harris_win selection (mode 1: u^2 < tmin takes the full Harris
+// expansion, the rest the 7-term wing polynomial), or full hjert (mode 2:
+// Algorithm 916 where u^2 + a^2 < 111, the asymptotic form elsewhere).  That
+// is exactly _ll_kernel's value, and _ll_kernel_win's to within its own
+// amp_max * e^{-tmin} < 1e-8 tau bound.
 //
-// The Dawson coefficient tables come from mcalf_torch/ops/faddeeva.py through
-// the generated header fused_loglike_coefs.h (mcalf_torch/ops/_build.py).
-//
-// Numerics: full-precision float32 (no --use_fast_math): expf and the
-// divisions are the IEEE-accurate versions the accuracy bars rely on.
+// What bounds it on an H100: the special functions.  Per (transition, pixel)
+// pair the Harris path costs about 100 operations and the 916 series about
+// 250 (an expf, a sinf, a cosf, two more expf and 81 multiply-adds), against
+// about 8 bytes x P of device-memory traffic per sample (the L2-resident d0
+// table aside), so it is compute-bound, not memory-bound.  The design answers
+// that with the per-pixel branches (wing pixels skip the exponential and the
+// Dawson regions, far pixels of a damped line take the few-operation
+// asymptotic form) and with the y-only 916 quantities computed once per
+// (sample, transition) into shared memory.  One CTA per sample keeps exp(-tau)
+// in shared memory for the convolution and reduces chi^2 in-block.
 
 #include <cuda_runtime.h>
 
-#include "fused_loglike_coefs.h"
+#include "voigt_h.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-__constant__ float kP1[] = MCALF_DAWSN_P1;
-__constant__ float kP2[] = MCALF_DAWSN_P2;
-__constant__ float kP3[] = MCALF_DAWSN_P3;
-__constant__ float kP4[] = MCALF_DAWSN_P4;
-
-template <int N>
-__device__ __forceinline__ float horner(const float (&c)[N], float x) {
-  float p = c[N - 1];
-#pragma unroll
-  for (int i = N - 2; i >= 0; --i) p = p * x + c[i];
-  return p;
-}
-
-// hjert_harris(u, a) with t = u^2: e^{-t}(1 + a^2(1 - 2t)) + a (2/sqrt(pi))
-// (2uF(u) - 1), the Dawson core evaluated in the one region t selects.
-__device__ __forceinline__ float hjert_harris(float t, float a) {
-  const float E = expf(-t);
-  float h1core;
-  if (t <= 6.25f) {
-    const float ph = (t <= 2.25f) ? horner(kP1, t) : horner(kP2, t - 4.25f);
-    h1core = 2.0f * t * ph - 1.0f;
-  } else {
-    const float v = 1.0f / t;
-    const float g = (t <= 16.0f) ? horner(kP3, v - 0.111f) : horner(kP4, v);
-    h1core = v * g;
-  }
-  return E * (1.0f + a * a * (1.0f - 2.0f * t)) +
-         a * (MCALF_TWO_OVER_SQRTPI * h1core);
-}
-
-// hjert_wing(u, a): the Harris tail without its e^{-t} terms.
-__device__ __forceinline__ float hjert_wing(float t, float a) {
-  const float v = 1.0f / fmaxf(t, 16.0f);
-  return a * ((MCALF_TWO_OVER_SQRTPI * v) * horner(kP4, v));
-}
 
 __global__ void __launch_bounds__(kThreads)
 fused_loglike_kernel(const float* __restrict__ dz,      // (B, T)
@@ -78,20 +46,17 @@ fused_loglike_kernel(const float* __restrict__ dz,      // (B, T)
                      const float* __restrict__ inv_noise,  // (P,)
                      const float* __restrict__ kern,    // (B or 1, K)
                      const float* __restrict__ cont,    // (B or 1,)
-                     const float* __restrict__ tmin,    // (T,) 0 = plain Harris
+                     const float* __restrict__ tmin,    // (T,) mode-1 thresholds
+                     const int* __restrict__ mode,      // (T,) 0, 1 or 2
                      float* __restrict__ chi2,          // (B,)
                      float* __restrict__ n4,            // (B,)
                      float* __restrict__ n5,            // (B,)
                      int T, int P, int half, int kern_stride, int cont_stride,
                      int asymm) {
   extern __shared__ float smem[];
-  float* s_dz = smem;
-  float* s_gain = s_dz + T;
-  float* s_av = s_gain + T;
-  float* s_idnu = s_av + T;
-  float* s_tmin = s_idnu + T;
+  mcalf::LineTables L;
+  float* s_kern = mcalf::carve_line_tables(smem, T, L);
   const int K = 2 * half + 1;
-  float* s_kern = s_tmin + T;
   float* s_flux = s_kern + K;  // (P,)
 
   __shared__ float r_chi[kWarps];
@@ -101,31 +66,18 @@ fused_loglike_kernel(const float* __restrict__ dz,      // (B, T)
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
 
-  // Per-(sample, transition) scalars, read uniformly by every thread.
-  for (int t = tid; t < T; t += kThreads) {
-    s_dz[t] = dz[b * T + t];
-    s_gain[t] = gain[b * T + t];
-    s_av[t] = av[b * T + t];
-    s_idnu[t] = 1.0f / dnu[b * T + t];
-    s_tmin[t] = tmin[t];
-  }
+  // Per-(sample, transition) scalars, read uniformly by every thread (the
+  // loader ends in a barrier, which also publishes the taps).
   for (int k = tid; k < K; k += kThreads) s_kern[k] = kern[b * kern_stride + k];
-  __syncthreads();
+  mcalf::load_line_tables(L, b, T, dz, gain, av, dnu, tmin, mode);
 
-  // tau synthesis + exp, one pixel per thread per step; d0 rows are read
-  // coalesced and stay resident in L2 across CTAs.
-  for (int p = tid; p < P; p += kThreads) {
-    const float c = cw[p];
-    float tau = 0.0f;
-    for (int t = 0; t < T; ++t) {
-      const float u = (d0[t * P + p] + s_dz[t] * c) * s_idnu[t];
-      const float u2 = u * u;
-      const float tm = s_tmin[t];
-      const float H = (tm > 0.0f && !(u2 < tm)) ? hjert_wing(u2, s_av[t])
-                                                : hjert_harris(u2, s_av[t]);
-      tau = tau + s_gain[t] * H;
-    }
-    s_flux[p] = expf(-tau);
+  // tau synthesis + exp, one pixel per thread per step.
+  if (L.any_damped) {
+    for (int p = tid; p < P; p += kThreads)
+      s_flux[p] = expf(-mcalf::tau_at<true>(L, T, P, d0, cw[p], p));
+  } else {
+    for (int p = tid; p < P; p += kThreads)
+      s_flux[p] = expf(-mcalf::tau_at<false>(L, T, P, d0, cw[p], p));
   }
   __syncthreads();
 
@@ -194,10 +146,12 @@ extern "C" int mcalf_fused_loglike(
     const float* dz, const float* gain, const float* av, const float* dnu,
     const float* d0, const float* cw, const float* data, const float* ivar,
     const float* inv_noise, const float* kern, const float* cont,
-    const float* tmin, float* chi2, float* n4, float* n5, int B, int T, int P,
-    int half, int kern_stride, int cont_stride, int asymm, void* stream) {
+    const float* tmin, const int* mode, float* chi2, float* n4, float* n5,
+    int B, int T, int P, int half, int kern_stride, int cont_stride, int asymm,
+    void* stream) {
   const size_t smem =
-      sizeof(float) * (static_cast<size_t>(5) * T + (2 * half + 1) + P);
+      sizeof(float) * (static_cast<size_t>(mcalf::kLineWords) * T +
+                       (2 * half + 1) + P);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         fused_loglike_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -206,7 +160,7 @@ extern "C" int mcalf_fused_loglike(
   }
   fused_loglike_kernel<<<B, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      dz, gain, av, dnu, d0, cw, data, ivar, inv_noise, kern, cont, tmin, chi2,
-      n4, n5, T, P, half, kern_stride, cont_stride, asymm);
+      dz, gain, av, dnu, d0, cw, data, ivar, inv_noise, kern, cont, tmin, mode,
+      chi2, n4, n5, T, P, half, kern_stride, cont_stride, asymm);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
 """Absorption-line forward model: parameter layout, priors, and spectra.
 
-A copy of :mod:`mcalf_tpu.models.forward` (host numpy, float64) whose
-imports need no jax: importing the original pulls jax in through
-``mcalf_tpu.models.__init__``.  Its numerics are unchanged, and
+A copy of :mod:`mcalf_tpu.models.forward` (host numpy, float64) on the
+port's own atomic table and spectrum reader: the port imports nothing of
+the JAX package.  Its numerics are unchanged, and
 tests/test_torch_likelihood.py holds it equal to the original.
 
 * :class:`AbsorptionModel` holds the *static* problem definition -- data
@@ -33,8 +33,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import scipy.special as _sps
 
-from mcalf_tpu.atomic import LineData, get_lines
-from mcalf_tpu.io.spectra import load_spectrum
+from mcalf_torch.atomic import LineData, get_lines
+from mcalf_torch.io.spectra import load_spectrum
 from mcalf_torch.ops.convolve import (
     FWHM_TO_SIGMA,
     SUPPORT_SIGMAS,

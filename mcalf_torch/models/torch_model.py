@@ -6,10 +6,13 @@ JAX package into *static structure* (:class:`StaticSpec`) and *constants*
 float32).  :func:`consts_from_numpy` carries that dict onto a device, and
 :class:`TorchForward` holds it as ``nn.Module`` buffers.
 
-The likelihood on a CUDA device runs the fused kernel
-(:func:`mcalf_torch.ops.voigt_cuda.fused_loglike`); on the CPU it runs the
-kernel's plain PyTorch version.  Only the Harris regime is ported: a model
-with a strongly damped transition raises at construction.
+On a CUDA device the likelihood runs the fused kernel
+(:func:`mcalf_torch.ops.voigt_cuda.fused_loglike`) and the model flux the
+tau kernel (:func:`mcalf_torch.ops.voigt_cuda.voigt_tau`); on the CPU both
+run their plain PyTorch versions.  Each transition takes the JAX package's
+static choice of Voigt evaluation, as an int32 mode per transition
+(:func:`line_modes`): windowed Harris, plain Harris, or the full
+Algorithm-916/asymptotic ``hjert`` for a strongly damped line.
 """
 
 from __future__ import annotations
@@ -24,24 +27,28 @@ from torch import nn
 
 from mcalf_torch.models.forward import CCGS, TAU_CONST, AbsorptionModel
 from mcalf_torch.ops.convolve import FWHM_TO_SIGMA, gaussian_kernel, lsf_convolve
-from mcalf_torch.ops.faddeeva import (
-    HARRIS_A_MAX,
-    HJERT_WIN_TMIN,
-    hjert_harris,
-    hjert_harris_win,
+from mcalf_torch.ops.faddeeva import HARRIS_A_MAX, HJERT_WIN_TMIN
+from mcalf_torch.ops.voigt_cuda import (
+    MODE_HARRIS,
+    MODE_HJERT,
+    MODE_WINDOWED,
+    check_supported,
+    fused_loglike,
+    voigt_tau,
 )
-from mcalf_torch.ops.voigt_cuda import check_supported, fused_loglike
 
 __all__ = [
     "StaticSpec",
     "static_spec",
     "build_consts",
     "consts_from_numpy",
+    "line_modes",
     "fused_args",
     "loglike_from_fused",
     "loglike_core",
     "loglike_cube_core",
     "reconstruct_core",
+    "chi2_core",
     "TorchForward",
     "make_torch_forward",
 ]
@@ -237,6 +244,18 @@ def consts_from_numpy(
     return out
 
 
+def line_modes(s: StaticSpec) -> tuple:
+    """Per-transition Voigt evaluation, as the JAX package chooses it in
+    ``reconstruct_core`` and ``_accum_tau``: windowed Harris where a wing
+    threshold is set, plain Harris where the prior bounds the damping below
+    HARRIS_A_MAX, the full ``hjert`` otherwise."""
+    win = s.win_tmin or (0.0,) * s.ntrans
+    return tuple(
+        MODE_WINDOWED if tm > 0.0 else MODE_HARRIS if h else MODE_HJERT
+        for tm, h in zip(win, s.harris)
+    )
+
+
 # ---------------------------------------------------------------------------
 # Compute cores: (params, consts, static) -> tensors.
 # ---------------------------------------------------------------------------
@@ -266,23 +285,22 @@ def _line_tables(p, c, s: StaticSpec, dz):
 
 
 def reconstruct_core(p, c, s: StaticSpec, dz=None):
-    """Model flux (..., P) for physical parameters p (..., ndim), plain
-    PyTorch (Harris regime).  ``dz``: optional high-precision z - zmid
-    (see build_consts); recovered from p in f32 when None."""
-    check_supported(s.harris, s.ntrans, s.npix, s.half)
+    """Model flux (..., P) for physical parameters p (..., ndim): tau by
+    :func:`voigt_tau` (the kernel on CUDA, its plain twin on the CPU), then
+    exp, the LSF convolution in ``s.conv_mode`` and the continuum, which
+    the JAX package leaves to XLA too.  ``dz``: optional high-precision
+    z - zmid (see build_consts); recovered from p in f32 when None."""
     p = torch.as_tensor(p, dtype=torch.float32)
     specres, cont = _head(p, c, s)
     dz, gain, avoigt, dnu = _line_tables(p, c, s, dz)
-    tau = torch.zeros(p.shape[:-1] + (s.npix,), dtype=torch.float32, device=p.device)
-    idnu = 1.0 / dnu
-    for t in range(s.ntrans):
-        u = (c["d0"][t] + dz[..., t : t + 1] * c["c_over_wave"]) * idnu[..., t : t + 1]
-        a_t = avoigt[..., t : t + 1]
-        if s.win_tmin and s.win_tmin[t] > 0.0:
-            H = hjert_harris_win(u, a_t, s.win_tmin[t])
-        else:
-            H = hjert_harris(u, a_t)
-        tau = tau + gain[..., t : t + 1] * H
+    T = s.ntrans
+    tau = voigt_tau(
+        dz.reshape(-1, T).contiguous(),
+        gain.reshape(-1, T).contiguous(),
+        avoigt.reshape(-1, T).contiguous(),
+        dnu.reshape(-1, T).contiguous(),
+        c["d0"], c["c_over_wave"], c["tmin"], c["modes"],
+    ).reshape(p.shape[:-1] + (s.npix,))
     flux_model = torch.exp(-tau)
     if s.half > 0:
         sigma_pix = (specres / FWHM_TO_SIGMA) / c["velstep"]
@@ -310,7 +328,7 @@ def fused_args(p, c, s: StaticSpec, dz=None):
         avoigt.reshape(-1, T).contiguous(),
         dnu.reshape(-1, T).contiguous(),
         c["d0"], c["c_over_wave"], c["data"], c["ivar"], c["inv_noise"],
-        kern.contiguous(), cont.contiguous(), c["tmin"],
+        kern.contiguous(), cont.contiguous(), c["tmin"], c["modes"],
     )
 
 
@@ -329,20 +347,37 @@ def loglike_from_fused(p, c, s: StaticSpec, chi2, n4, n5):
     return ll
 
 
+def chi2_core(p, c, s: StaticSpec):
+    m = reconstruct_core(p, c, s)
+    r = c["data"] - m
+    return torch.sum(c["ivar"] * r * r, dim=-1)
+
+
 def loglike_core(p, c, s: StaticSpec, dz=None):
-    """tau -> exp -> LSF conv ('same_edge') -> chi^2 (+ asymmlike counts) in
-    one :func:`fused_loglike` call: the kernel on CUDA, its plain twin on
-    the CPU.  Only the Gaussian-prior term stays outside."""
-    if s.conv_mode != "same_edge":
-        raise ValueError(
-            f"the fused likelihood convolves 'same_edge', not {s.conv_mode!r}"
-        )
+    """With ``conv_mode='same_edge'``: tau -> exp -> LSF conv -> chi^2 (+
+    asymmlike counts) in one :func:`fused_loglike` call, the kernel on CUDA
+    and its plain twin on the CPU; only the Gaussian-prior term stays
+    outside.  Any other mode goes through :func:`reconstruct_core`, as the
+    JAX package's does."""
     p = torch.as_tensor(p, dtype=torch.float32)
-    chi2, n4, n5 = fused_loglike(
-        *fused_args(p, c, s, dz=dz),
-        harris=s.harris, half=s.half, asymm=s.asymmlike,
-    )
-    return loglike_from_fused(p, c, s, chi2, n4, n5)
+    if s.conv_mode == "same_edge":
+        chi2, n4, n5 = fused_loglike(
+            *fused_args(p, c, s, dz=dz), half=s.half, asymm=s.asymmlike,
+        )
+        return loglike_from_fused(p, c, s, chi2, n4, n5)
+    m = reconstruct_core(p, c, s, dz=dz)
+    r = c["data"] - m
+    ll = -0.5 * (torch.sum(c["ivar"] * r * r, dim=-1) + c["const_term"])
+    if s.asymmlike:
+        resid = r / c["noise"]
+        n5 = torch.sum((resid > 5.0) & c["valid"], dim=-1)
+        n4 = torch.sum((resid > 4.0) & c["valid"], dim=-1)
+        bad = (n5 > c["cdf5"] + c["grace"]) | (n4 > c["cdf4"] + c["grace"])
+        ll = torch.where(bad, -math.inf, ll)
+    if s.has_gpriors:
+        d = p - c["gp_mu"]
+        ll = ll - 0.5 * (torch.sum(d * d * c["gp_isig2"], dim=-1) + c["gp_norm"])
+    return ll
 
 
 def cube_to_params_core(u, c):
@@ -370,20 +405,25 @@ class TorchForward(nn.Module):
 
     def __init__(self, static: StaticSpec, consts: Mapping[str, torch.Tensor]):
         super().__init__()
-        check_supported(static.harris, static.ntrans, static.npix, static.half)
+        check_supported(static.ntrans, static.npix, static.half)
         self.static = static
         self.ndim = static.ndim
         self.npix = static.npix
         device = consts["d0"].device
-        names = list(consts)
+        # the kernels' per-transition tables, always those of ``static``
+        tables = {
+            "tmin": torch.tensor(
+                static.win_tmin or (0.0,) * static.ntrans,
+                dtype=torch.float32, device=device,
+            ),
+            "modes": torch.tensor(line_modes(static), dtype=torch.int32, device=device),
+        }
+        names = [k for k in consts if k not in tables]
         for k in names:
             self.register_buffer(k, consts[k])
-        # wing thresholds, the kernel's per-transition mode table
-        tmin = static.win_tmin or (0.0,) * static.ntrans
-        self.register_buffer(
-            "tmin", torch.tensor(tmin, dtype=torch.float32, device=device)
-        )
-        self._names = tuple(names) + ("tmin",)
+        for k, v in tables.items():
+            self.register_buffer(k, v)
+        self._names = tuple(names) + tuple(tables)
 
     def consts(self) -> Dict[str, torch.Tensor]:
         return {k: getattr(self, k) for k in self._names}
@@ -395,17 +435,32 @@ class TorchForward(nn.Module):
     def cube_to_params(self, u):
         return cube_to_params_core(u, self.consts())
 
+    def loglike(self, p):
+        """(..., ndim) physical parameters -> (...) log-likelihood."""
+        return loglike_core(p, self.consts(), self.static)
+
     def reconstruct(self, p):
-        """(..., ndim) physical parameters -> (..., P) model flux (plain)."""
+        """(..., ndim) physical parameters -> (..., P) model flux."""
         return reconstruct_core(p, self.consts(), self.static)
+
+    def chi2(self, p):
+        """(..., ndim) physical parameters -> (...) chi^2 of the model flux."""
+        return chi2_core(p, self.consts(), self.static)
 
 
 def make_torch_forward(
-    model: AbsorptionModel, device: "torch.device | str", gpriors: bool = False
+    model: AbsorptionModel,
+    device: "torch.device | str" = "cuda",
+    conv_mode: str = "same_edge",
+    gpriors: bool = False,
 ) -> TorchForward:
-    """Build the forward model of ``model`` on ``device``.  A CUDA device
-    evaluates the likelihood with the fused kernel; a CPU device with its
-    plain PyTorch version."""
-    s = static_spec(model, gpriors=gpriors)
+    """Build the forward model of ``model`` on ``device`` (the GPU unless
+    the caller asks for the CPU).  A CUDA device runs the kernels, a CPU
+    device their plain PyTorch versions.
+
+    ``conv_mode='same_edge'`` is the reference likelihood's convolution
+    (the fused kernel's); ``'wrap'`` reproduces the numpy/plot/mock path,
+    its likelihood through :meth:`TorchForward.reconstruct`."""
+    s = static_spec(model, conv_mode=conv_mode, gpriors=gpriors)
     c = consts_from_numpy(build_consts(model, gpriors=gpriors), device)
     return TorchForward(s, c)

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-Each library is compiled at first use for ``sm_90a`` with a plain C entry
-point, into ``build/mcalf_torch/<hash>/`` beside the package (a directory
-git ignores), keyed by a hash of the source, the generated header and the
-compiler flags, so an edited source rebuilds and an unchanged one loads
-from the cache.  ``--use_fast_math`` is deliberately absent: it would turn
+Every ``csrc/*.cu`` source is compiled by ONE ``nvcc`` call at first use,
+for ``sm_90a``, into one shared library of plain C entry points, in
+``build/mcalf_torch/<hash>/`` beside the package (a directory git ignores),
+keyed by a hash of the sources, the shared headers, the generated header
+and the compiler flags, so an edited source rebuilds and an unchanged one
+loads from the cache.  ``--use_fast_math`` is deliberately absent: it would turn
 ``expf`` and the divisions into approximations, and the accuracy bars are
 those of full-precision float32.
 
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -51,16 +53,36 @@ def _c_array(vals) -> str:
     return "{" + ", ".join(f"{float(v)!r}f" for v in vals) + "}"
 
 
+def _c_float(v) -> str:
+    return f"{float(v)!r}f"
+
+
 def coefficient_header() -> str:
-    """The kernel's constant tables, generated from ops/faddeeva.py."""
+    """The kernels' constant tables, generated from ops/faddeeva.py."""
+    f = faddeeva
     lines = [
         "// Generated by mcalf_torch/ops/_build.py from mcalf_torch/ops/faddeeva.py.",
         "#pragma once",
-        f"#define MCALF_DAWSN_P1 {_c_array(faddeeva.DAWSN_P1)}",
-        f"#define MCALF_DAWSN_P2 {_c_array(faddeeva.DAWSN_P2)}",
-        f"#define MCALF_DAWSN_P3 {_c_array(faddeeva.DAWSN_P3)}",
-        f"#define MCALF_DAWSN_P4 {_c_array(faddeeva.DAWSN_P4)}",
-        f"#define MCALF_TWO_OVER_SQRTPI {faddeeva.TWO_OVER_SQRTPI!r}f",
+        f"#define MCALF_DAWSN_P1 {_c_array(f.DAWSN_P1)}",
+        f"#define MCALF_DAWSN_P2 {_c_array(f.DAWSN_P2)}",
+        f"#define MCALF_DAWSN_P3 {_c_array(f.DAWSN_P3)}",
+        f"#define MCALF_DAWSN_P4 {_c_array(f.DAWSN_P4)}",
+        f"#define MCALF_TWO_OVER_SQRTPI {_c_float(f.TWO_OVER_SQRTPI)}",
+        f"#define MCALF_PI {_c_float(math.pi)}",
+        f"#define MCALF_INV_SQRTPI {_c_float(1.0 / math.sqrt(math.pi))}",
+        f"#define MCALF_ERFCX_COEF {_c_array(f.ERFCX_COEF)}",
+        f"#define MCALF_916_N_TERMS {f.N_TERMS}",
+        f"#define MCALF_916_N_MID {f.N_MID}",
+        f"#define MCALF_916_AN_MID {_c_float(f.AN[f.N_MID])}",
+        f"#define MCALF_916_AN_HI {_c_float(f.AN[-1])}",
+        f"#define MCALF_916_LO_CUT {_c_float(f.LO_CUT)}",
+        f"#define MCALF_916_HI_CUT {_c_float(f.HI_CUT)}",
+        f"#define MCALF_916_AN2 {_c_array(f.AN2)}",
+        f"#define MCALF_916_EXP_AN2 {_c_array(f.EXP_AN2)}",
+        f"#define MCALF_916_UP {_c_array(f.UP_RATIO)}",
+        f"#define MCALF_916_INV_UP {_c_array(1.0 / r for r in f.UP_RATIO)}",
+        f"#define MCALF_E_QUARTER {_c_float(f.E_QUARTER)}",
+        f"#define MCALF_R2_SWITCH {_c_float(f.R2_SWITCH)}",
     ]
     return "\n".join(lines) + "\n"
 
@@ -79,28 +101,31 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> BuiltLibrary:
-    """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
-    src = CSRC / f"{name}.cu"
+def load() -> BuiltLibrary:
+    """Build (if needed) and load every ``csrc/*.cu`` as one ctypes library."""
+    sources = sorted(CSRC.glob("*.cu"))
     header = coefficient_header()
     key = hashlib.sha256()
-    key.update(src.read_bytes())
+    for path in sorted(CSRC.glob("*.cu*")):
+        key.update(path.name.encode())
+        key.update(path.read_bytes())
     key.update(header.encode())
     key.update(" ".join(NVCC_FLAGS).encode())
-    out_dir = BUILD_ROOT / f"{name}-{key.hexdigest()[:16]}"
-    lib_path = out_dir / f"lib{name}.so"
+    out_dir = BUILD_ROOT / f"kernels-{key.hexdigest()[:16]}"
+    lib_path = out_dir / "libmcalf_kernels.so"
     seconds, log = 0.0, ""
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / f"{name}_coefs.h").write_text(header)
-        tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-o", str(tmp), str(src)]
+        (out_dir / "mcalf_coefs.h").write_text(header)
+        tmp = out_dir / f"libmcalf_kernels.so.tmp{os.getpid()}"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-I", str(CSRC),
+               "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {src}:\n{log}")
+            raise RuntimeError(f"nvcc failed building {CSRC}/*.cu:\n{log}")
         os.replace(tmp, lib_path)
     return BuiltLibrary(ctypes.CDLL(str(lib_path)), lib_path, seconds, log)

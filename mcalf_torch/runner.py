@@ -3,8 +3,8 @@
 Port of :mod:`mcalf_tpu.runner` on its single-spectrum branch: every solver
 name the reference accepts runs the same native nested sampler, its
 settings section tuning it, and the fit writes ``.stats`` and
-``_equal_weights.txt`` in the reference formats (through
-:mod:`mcalf_tpu.io.chains`).  The other branches of the JAX runner --
+``_equal_weights.txt`` in the reference formats (through the port's copy,
+:mod:`mcalf_torch.io.chains`).  The other branches of the JAX runner --
 seed ensembles, ``ncomp_grid``, multi-spectrum fleets, dynamic sampling,
 ``auto_repeats``, checkpoint/resume and ``write_dead`` -- are not ported
 yet and raise ``NotImplementedError`` naming their ROADMAP item.
@@ -23,8 +23,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from mcalf_tpu.atomic import load_atomfile
-from mcalf_tpu.io.chains import write_equal_weights, write_stats
+from mcalf_torch.atomic import load_atomfile
+from mcalf_torch.io.chains import write_equal_weights, write_stats
 from mcalf_torch.models import AbsorptionModel, make_torch_forward
 from mcalf_torch.sampler import (
     NSConfig,

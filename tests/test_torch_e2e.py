@@ -125,6 +125,30 @@ def test_port_runs_without_jax(tmp_path):
     assert "NOJAX-OK" in proc.stdout
 
 
+def test_narrow_line_fit_through_python_m(tmp_path):
+    """The narrow-line 1-comp CIV fit (brange = 3, 40: both transitions
+    strongly damped, every evaluation in the full hjert) through
+    ``python -m mcalf_torch`` on the CPU, at reduced depth."""
+    cfg = tmp_path / "narrow.cfg"
+    cfg.write_text(
+        CFG.format(testdata=TESTDATA, out=tmp_path, run="device = cpu", extra="")
+        .replace("brange = 10.0, 40.0", "brange = 3.0, 40.0")
+        .replace("max_samples = 600", "max_samples = 300")
+        .replace("num_live_points = 50", "num_live_points = 40")
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "mcalf_torch", str(cfg)], cwd=str(tmp_path),
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    head = (tmp_path / "fits" / "pc_fits_0.stats").read_text().split()
+    assert head[0] == "log(Z)" and np.isfinite(float(head[2])) and float(head[4]) > 0
+    eq = np.loadtxt(tmp_path / "fits" / "pc_fits_0_equal_weights.txt", ndmin=2)
+    assert eq.shape == (300, 2 + 4) and np.all(np.isfinite(eq))
+    assert np.all((eq[:, 5] >= 3.0) & (eq[:, 5] <= 40.0))
+
+
 def test_device_default_without_gpu_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")

@@ -147,7 +147,7 @@ def test_fused_plain_matches_pallas_flagship(flagship, windowed):
     chi2, n4, n5 = voigt_cuda.fused_loglike_plain(
         *args, half=s.half, asymm=False
     )
-    dzn, gain, av, dnu, d0, cw, data, ivar, inn, kern, cont, _ = [
+    dzn, gain, av, dnu, d0, cw, data, ivar, inn, kern, cont, _, _ = [
         a.numpy() for a in args
     ]
     jc = jm.build_consts(jmod)
@@ -275,6 +275,49 @@ def test_gaussian_priors_match_jax():
     assert np.all(got < plain)
 
 
+_STRONG_DAMPING = {
+    # the narrow-line model: fit.cfg's CIV doublet with brange = 3, 40 (every
+    # transition above HARRIS_A_MAX), ncomp cut to 2-3 for CPU time
+    "narrow": dict(
+        fitrange=[(6180.0, 6220.0)], fitlines=["CIV 1548", "CIV 1550"],
+        ncomp=(2, 3), specres=[8.0], Nrange=[12.0, 14.5], brange=[3.0, 40.0],
+        zrange=[2.99, 3.01],
+    ),
+    # test_windowing.py's mixed model: HI 1215 strongly damped, CIV 1548 and
+    # the filler windowed Harris
+    "mixed": dict(
+        fitrange=[(6180.0, 6220.0)], fitlines=["CIV 1548", "HI 1215"],
+        ncomp=(1, 3), nfill=1, specres=[8.0], Nrange=[12.0, 14.5],
+        brange=[5.0, 40.0], zrange=[2.99, 3.01],
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_STRONG_DAMPING))
+def test_strong_damping_loglike_matches_jax(name):
+    """The port's loglike_cube (the fused plain version, mode 2 on the
+    damped transitions) against the JAX package's XLA path and its
+    interpreted Pallas kernel, on a prior-spread and a z-clustered batch.
+    The mixed model runs the windowed Pallas kernel, held to its own bar
+    (atol 0.5, test_windowing.py:272)."""
+    spec = str(TESTDATA / "civ_mock_spec_multicomp.txt")
+    kw = _STRONG_DAMPING[name]
+    jmod = JaxAbsorptionModel.from_file(spec, **kw)
+    fwd = make_torch_forward(AbsorptionModel.from_file(spec, **kw), "cpu")
+    assert voigt_cuda.MODE_HJERT in fwd.modes.tolist()
+    startind, ncompmax = jmod.canon_layout()[:2]
+    zcols = [startind + 2 + 3 * i for i in range(ncompmax)]
+    rng = np.random.default_rng(13)
+    u = rng.uniform(0.02, 0.98, size=(16, jmod.ndim))
+    u[8:, zcols] = 0.5 + rng.normal(0.0, 2e-3, size=(8, len(zcols)))
+    u = u.astype(np.float32)
+    got = fwd.loglike_cube(torch.from_numpy(u)).numpy()
+    xla = np.asarray(make_jax_forward(jmod, use_pallas=False).loglike_cube(u))
+    pal = np.asarray(make_jax_forward(jmod, use_pallas=True).loglike_cube(u))
+    _assert_ll_close(got, xla)
+    _assert_ll_close(got, pal, atol=0.5 if name == "mixed" else 0.05)
+
+
 def test_reconstruct_matches_xla(flagship):
     jmod, _ = flagship
     u = _cube(jmod.ndim, 5, seed=3)
@@ -292,8 +335,9 @@ def test_reconstruct_matches_xla(flagship):
 
 def test_non_harris_transition_raises():
     """HI 1215 at b >= 5 km/s has prior-bound damping above HARRIS_A_MAX
-    (test_windowing.py's mixed model): the kernel route refuses it, and the
-    wrapper's validation runs on the CPU too."""
+    (test_windowing.py's mixed model): it builds, its non-Harris
+    transitions take the full hjert (mode 2), and only a mode outside the
+    three the kernels know raises, on the CPU route too."""
     kw = dict(
         fitrange=[(6180.0, 6220.0)],
         fitlines=["CIV 1548", "HI 1215"],
@@ -306,23 +350,24 @@ def test_non_harris_transition_raises():
     )
     tmod = AbsorptionModel.from_file(str(TESTDATA / "civ_mock_spec_multicomp.txt"), **kw)
     s = tm.static_spec(tmod)
-    assert not all(s.harris)
-    with pytest.raises(NotImplementedError, match="Harris"):
-        make_torch_forward(tmod, "cpu")
+    assert s.harris == (True, False, True, False, True, False, True)
+    fwd = make_torch_forward(tmod, "cpu")
+    assert fwd.modes.tolist() == [1, 2, 1, 2, 1, 2, 1]
     T, P = s.ntrans, s.npix
     z = torch.zeros
-    with pytest.raises(NotImplementedError, match="Harris"):
+    bad = torch.full((T,), 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="mode"):
         voigt_cuda.fused_loglike(
             z(2, T), z(2, T), z(2, T), torch.ones(2, T), z(T, P), z(P), z(P),
-            z(P), z(P), torch.ones(1, 2 * s.half + 1), torch.ones(1), z(T),
-            harris=s.harris, half=s.half, asymm=False,
+            z(P), z(P), torch.ones(1, 2 * s.half + 1), torch.ones(1), z(T), bad,
+            half=s.half, asymm=False,
         )
 
 
 def test_kernel_wrapper_validation():
     """What the CUDA route would refuse is refused before any launch."""
     with pytest.raises(ValueError, match="shared memory"):
-        voigt_cuda.check_supported((True,) * 2, 2, 70000, 11)
-    with pytest.raises(ValueError, match="harris flags"):
-        voigt_cuda.check_supported((True,), 2, 100, 1)
-    voigt_cuda.check_supported((True,) * 22, 22, 1999, 11)
+        voigt_cuda.check_supported(2, 70000, 11)
+    with pytest.raises(ValueError, match="shared memory"):
+        voigt_cuda.check_supported(1700, 10, 0)
+    voigt_cuda.check_supported(22, 1999, 11)
