@@ -15,15 +15,27 @@ Phases, each printing lines tagged with its number:
    multicomponent model; then the strong-damping branch on the narrow
    flagship (fit.cfg with brange = 3, 40: all 22 transitions in the full
    hjert) and the mixed model (CIV 1548 + HI 1215 + filler, T=7, windowed
-   Harris and full hjert);
+   Harris and full hjert); then ragged spectra made from the flagship's and
+   the narrow flagship's by resampling (P in {1, 23, 255, 257, 2049, 5000}
+   with half in {0, 11} where P > 2 half, and P = 65536 with T = 2, each at
+   B in {1, 100}), chi^2 to rtol 1e-5 / atol 0.1 and n4/n5 within 1, and two
+   launches on the same inputs bit-identical;
 4. tau kernel vs plain on the flagship, the narrow flagship and the mixed
    model, B in {100, 200, 13}: |dtau| / (|tau| + 1e-3) < 3e-5 (the JAX
    package's tau bar); and reconstruct / chi2 / loglike('wrap') on CUDA
    each launch the tau kernel once;
-5. timing (median of CUDA-event timings, kernel and plain in turns, the
-   card's name and power limit on every line): the fused kernel on the
-   flagship and the narrow flagship, the tau kernel on both, at B=100 and
-   200, and ``fwd.reconstruct`` per call;
+5. timing, the card's name and power limit on every line: the fused kernel
+   on the flagship and the narrow flagship, the tau kernel on both, at B=100
+   and 200, and ``fwd.loglike_cube`` and ``fwd.reconstruct`` per call.  A
+   kernel's device time (``ms``) leaves the wrapper's host time out: 20
+   calls captured back to back in a CUDA graph, the graph replayed between
+   two CUDA events, the median of 10 replays over 20; its call time
+   (``call_ms``, what the eager loop pays per batch) is the median of CUDA
+   events around single calls; the plain version's is a call time; kernel
+   and plain in turns (plain, kernel, kernel, plain).  Once, on the
+   flagship at B=100, torch.profiler's kernel time cross-checks the graph
+   method.  Prints the fused kernel's cluster and tile geometry and its
+   resident CTAs per SM and clusters per card (the CUDA occupancy API);
 6. the slices: ``mcalf_torch.cli.main`` on a copy of testdata/fit.cfg at
    full width (ndim 34, nlive 200, B=100, canon_layout, the kernel on),
    depth cut by max_samples, then the same on the narrow flagship; checks
@@ -38,9 +50,10 @@ Phases, each printing lines tagged with its number:
    hjert) against 4985.30 = 4985.51 + ln(30/37) (the b prior's density
    changes from 1/30 to 1/37 where the posterior lies).
 
-Then one JSON line with the kernels' launch counts, errors, times and
-bounds, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
-raises.  The port must not import jax or mcalf_tpu: checked at the end.
+Then one JSON line with the kernels' launch counts, errors, device and
+call times and bounds (at the narrow flagship, B=100), and as the last
+line ``{"ok": true, "device": {...}}``.  Any failure raises.  The port
+must not import jax or mcalf_tpu: checked at the end.
 """
 
 from __future__ import annotations
@@ -113,6 +126,8 @@ def phase_build() -> None:
         if "entry function" in ln or "Function properties for" in ln:
             name = next((k for k in ("voigt_tau_kernel", "fused_loglike_kernel",
                                      "wofz_real_916") if k in ln), name)
+            if name == "fused_loglike_kernel":  # one instantiation per case
+                name += "<damped>" if "ILb1E" in ln else "<harris>"
         elif "registers" in ln or "spill" in ln:
             print(f"[2 build] ptxas {name}: {ln.strip().removeprefix('ptxas info    : ')}")
 
@@ -205,6 +220,92 @@ def phase_kernel_check() -> float:
     return worst
 
 
+RAGGED_P = (1, 23, 255, 257, 2049, 5000)
+LONG_P = 65536  # over the shared-memory limit of one CTA per sample
+
+
+def _resampled(args, P, half, B, T=None):
+    """fused_loglike's arguments for a spectrum of P pixels made from a
+    model's (P0 pixels): its d0 rows, c/lambda, data, ivar and 1/noise
+    linearly resampled onto P pixels, the first B samples and T transitions
+    of its line tables; its own per-sample taps and continua when half is
+    the model's, else one box of 2 half + 1 taps and one continuum shared by
+    the batch (the kernel's stride-0 inputs)."""
+    dz, gain, av, dnu, d0, cw, data, ivar, inv_noise, kern, cont, tmin, modes = args
+    T = T or dz.shape[1]
+    x = np.linspace(0.0, cw.shape[0] - 1.0, P)
+    grid = np.arange(cw.shape[0], dtype=np.float64)
+
+    def resample(v):
+        a = v.double().cpu().numpy()
+        out = np.stack([np.interp(x, grid, row) for row in a.reshape(-1, a.shape[-1])])
+        return torch.from_numpy(out.reshape(a.shape[:-1] + (P,)).astype(np.float32)).cuda()
+
+    rows = lambda v: v[:B, :T].contiguous()
+    if half == (kern.shape[1] - 1) // 2:
+        kern, cont = kern[:B].contiguous(), cont[:B].contiguous()
+    else:
+        kern = torch.full((1, 2 * half + 1), 1.0 / (2 * half + 1), device=kern.device)
+        cont = cont[:1].contiguous()
+    return (rows(dz), rows(gain), rows(av), rows(dnu), resample(d0[:T]),
+            resample(cw), resample(data), resample(ivar), resample(inv_noise),
+            kern, cont, tmin[:T].contiguous(), modes[:T].contiguous())
+
+
+def phase_ragged_check() -> float:
+    """Ragged and long spectra against the plain version, and repeated
+    launches bit-identical.  Returns the largest |dchi2|."""
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.ops import voigt_cuda
+
+    worst = 0.0
+    cases = [(P, half, None) for P in RAGGED_P for half in (0, 11) if P > 2 * half]
+    cases.append((LONG_P, 11, 2))
+    for name in ("flagship", "narrow"):
+        fwd = make_torch_forward(_model(name), "cuda")
+        s = fwd.static
+        full = _fused_args(fwd, _batch(s.ndim, 100, False, seed=11, layout=None))[1]
+        for P, half, T in cases:
+            for B in (1, 100):
+                args = _resampled(full, P, half, B, T)
+                kw = dict(half=half, asymm=True)
+                k = voigt_cuda.fused_loglike(*args, **kw)
+                again = voigt_cuda.fused_loglike(*args, **kw)
+                q = voigt_cuda.fused_loglike_plain(*args, **kw)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(k, again)):
+                    raise AssertionError(f"{name} P={P} half={half} B={B}: "
+                                         "two launches differ")
+                ck, cq = k[0].double().cpu().numpy(), q[0].double().cpu().numpy()
+                err = float(np.max(np.abs(ck - cq)))
+                if not np.allclose(ck, cq, rtol=1e-5, atol=0.1):
+                    raise AssertionError(f"{name} P={P} half={half} B={B}: "
+                                         f"max |dchi2| = {err}")
+                dn = max(float((a - b).abs().max()) for a, b in zip(k[1:], q[1:]))
+                if dn > 1.0:
+                    raise AssertionError(f"{name} P={P} half={half} B={B}: "
+                                         f"n4/n5 differ by {dn}")
+                worst = max(worst, err)
+                g = voigt_cuda.fused_geometry(args[0].shape[1], P, half)
+                print(
+                    f"[3 ragged] {name} T={args[0].shape[1]} P={P} half={half} "
+                    f"B={B}: cluster {g.cluster} x tile {g.tile}, max |dchi2| "
+                    f"{err:.3g} (chi2 up to {float(cq.max()):.4g}), max |dn4/5| "
+                    f"{dn:g}, repeat launch bit-identical"
+                )
+    # the production shape, repeated launches
+    fwd = make_torch_forward(_model("flagship"), "cuda")
+    args = _fused_args(fwd, _batch(fwd.static.ndim, 100, False, seed=5, layout=None))[1]
+    kw = dict(half=fwd.static.half, asymm=True)
+    first = voigt_cuda.fused_loglike(*args, **kw)
+    for _ in range(5):
+        if not all(torch.equal(a, b) for a, b in
+                   zip(first, voigt_cuda.fused_loglike(*args, **kw))):
+            raise AssertionError("flagship B=100: repeated launches differ")
+    print("[3 ragged] flagship B=100: 6 launches bit-identical")
+    return worst
+
+
 def phase_tau_check() -> float:
     """Returns the largest |dtau| (the check is relative, see above)."""
     from mcalf_torch.models import make_torch_forward
@@ -248,6 +349,8 @@ def phase_tau_check() -> float:
 
 
 def _median_ms(fn, reps=30):
+    """Call time: the median of CUDA events recorded around single calls on
+    an idle stream, so the wrapper's host time before the launch is in it."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -261,6 +364,55 @@ def _median_ms(fn, reps=30):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _device_ms(fn, n=20, reps=10):
+    """Device time of one call, without the host's: n calls captured back to
+    back in a CUDA graph (each wrapper launches on the current stream, the
+    capture stream), the graph replayed between two CUDA events; the median
+    over reps replays, divided by n."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as capture wants
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
+def _profiled_ms(fn, kernel: str, n=20):
+    """torch.profiler's mean device time of the kernels whose name holds
+    `kernel` over n calls, or None when the trace shows none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            total_us += float(getattr(evt, "self_device_time_total", 0.0)
+                              or getattr(evt, "self_cuda_time_total", 0.0))
+            count += evt.count
+    return total_us / count / 1e3 if count and total_us > 0 else None
 
 
 # Operations per (sample, transition, pixel) pair by the branch it takes,
@@ -329,6 +481,18 @@ def phase_timing(smi: str) -> dict:
     for name in ("flagship", "narrow"):
         fwd = make_torch_forward(_model(name), "cuda")
         s = fwd.static
+        g = voigt_cuda.fused_geometry(s.ntrans, s.npix, s.half)
+        damped = voigt_cuda.MODE_HJERT in fwd.modes.tolist()
+        ctas_per_sm, clusters = voigt_cuda.fused_occupancy(s.ntrans, s.npix, s.half, damped)
+        print(
+            f"[5 timing] {name} fused geometry: T={s.ntrans} P={s.npix} half={s.half} "
+            f"({'damped' if damped else 'harris'} kernel): "
+            f"cluster {g.cluster} x tile {g.tile} pixels, {g.threads} threads and "
+            f"{g.smem} B of shared memory per CTA; {ctas_per_sm} CTAs "
+            f"({ctas_per_sm * g.threads // 32} warps) resident per SM, {clusters} "
+            f"clusters ({clusters * g.cluster} CTAs) per card; CTAs launched: "
+            f"{100 * g.cluster} at B=100, {200 * g.cluster} at B=200"
+        )
         for B in (100, 200):
             u = _batch(s.ndim, B, False, seed=B, layout=None)
             p, args = _fused_args(fwd, u)
@@ -340,28 +504,38 @@ def phase_timing(smi: str) -> dict:
             tau_plain = lambda: voigt_cuda.voigt_tau_plain(*targs)
             # kernel and plain in turns: plain, kernel, kernel, plain
             fp = [_median_ms(fused_plain, reps=10)]
-            fk = [_median_ms(fused), _median_ms(fused)]
+            fk = [_device_ms(fused), _device_ms(fused)]
+            fc = _median_ms(fused)
             fp.append(_median_ms(fused_plain, reps=10))
             tp = [_median_ms(tau_plain, reps=10)]
-            tk = [_median_ms(tau), _median_ms(tau)]
+            tk = [_device_ms(tau), _device_ms(tau)]
+            tc = _median_ms(tau)
             tp.append(_median_ms(tau_plain, reps=10))
             ms_cube = _median_ms(lambda: fwd.loglike_cube(u))
             ms_rec = _median_ms(lambda: fwd.reconstruct(p))
             fb, fby = _bound(args, True, s.half)
             tb, tby = _bound(targs, False)
             rec = dict(
-                fused=(float(np.mean(fk)), float(np.mean(fp)), fb, fby),
-                tau=(float(np.mean(tk)), float(np.mean(tp)), tb, tby),
+                fused=(float(np.mean(fk)), fc, float(np.mean(fp)), fb, fby),
+                tau=(float(np.mean(tk)), tc, float(np.mean(tp)), tb, tby),
             )
             out[name, B] = rec
             print(
-                f"[5 timing] {name} B={B}: fused kernel {fk[0]:.4f}/{fk[1]:.4f} ms "
-                f"({rec['fused'][0] * 1e3 / B:.3f} us/eval), plain "
+                f"[5 timing] {name} B={B}: fused kernel device {fk[0]:.4f}/{fk[1]:.4f} ms "
+                f"({rec['fused'][0] * 1e3 / B:.4f} us/eval), call {fc:.4f} ms, plain "
                 f"{fp[0]:.2f}/{fp[1]:.2f} ms, bound {fb:.4f} ms ({fby}); "
-                f"voigt_tau {tk[0]:.4f}/{tk[1]:.4f} ms, plain {tp[0]:.2f}/{tp[1]:.2f} ms, "
-                f"bound {tb:.4f} ms ({tby}); loglike_cube {ms_cube:.4f} ms/call, "
-                f"reconstruct {ms_rec:.4f} ms/call  [{smi}]"
+                f"voigt_tau device {tk[0]:.4f}/{tk[1]:.4f} ms, call {tc:.4f} ms, plain "
+                f"{tp[0]:.2f}/{tp[1]:.2f} ms, bound {tb:.4f} ms ({tby}); loglike_cube "
+                f"{ms_cube:.4f} ms/call, reconstruct {ms_rec:.4f} ms/call  [{smi}]"
             )
+            if name == "flagship" and B == 100:
+                pf = _profiled_ms(fused, "fused_loglike_kernel")
+                pt = _profiled_ms(tau, "voigt_tau_kernel")
+                show = lambda v: "no device time in the trace" if v is None else f"{v:.4f} ms"
+                print(f"[5 timing] flagship B=100 torch.profiler kernel time: fused "
+                      f"{show(pf)}, voigt_tau {show(pt)} (graph method "
+                      f"{rec['fused'][0]:.4f}, {rec['tau'][0]:.4f} ms)  [{smi}]")
+                rec["profiled"] = (pf, pt)
     return out
 
 
@@ -518,6 +692,7 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     worst = phase_kernel_check()
+    worst_ragged = phase_ragged_check()
     worst_tau = phase_tau_check()
     timing = phase_timing(smi)
     tmp = ROOT / "build" / "chip_smoke"  # git-ignored
@@ -534,8 +709,8 @@ def main() -> int:
     imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "mcalf_tpu"))
     if imported:
         raise AssertionError(f"the port imported {imported[:5]}")
-    f_ms, f_plain, f_bound, f_by = timing["narrow", 100]["fused"]
-    t_ms, t_plain, t_bound, t_by = timing["narrow", 100]["tau"]
+    f_ms, f_call, f_plain, f_bound, f_by = timing["narrow", 100]["fused"]
+    t_ms, t_call, t_plain, t_bound, t_by = timing["narrow", 100]["tau"]
     at = "narrow flagship (fit.cfg, brange 3-40), T=22 P=1999 B=100"
     print(json.dumps({"kernels": [
         {
@@ -546,7 +721,9 @@ def main() -> int:
             "launches": narrow["launches"],
             "launches_flagship_slice": flagship["launches"],
             "max_abs_err": worst,
+            "max_abs_dchi2_ragged": worst_ragged,
             "ms": f_ms,
+            "call_ms": f_call,
             "plain_ms": f_plain,
             "bound_ms": f_bound,
             "bound_by": f_by,
@@ -561,6 +738,7 @@ def main() -> int:
             "launches": tau_path["launches"],
             "max_abs_err": worst_tau,
             "ms": t_ms,
+            "call_ms": t_call,
             "plain_ms": t_plain,
             "bound_ms": t_bound,
             "bound_by": t_by,

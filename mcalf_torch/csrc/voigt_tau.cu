@@ -39,7 +39,8 @@ voigt_tau_kernel(const float* __restrict__ dz,    // (B, T)
                  const int* __restrict__ mode,    // (T,) 0, 1 or 2
                  float* __restrict__ tau,         // (B, P)
                  int B, int T, int P) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem_raw[];  // 16-byte aligned line records
+  float* smem = reinterpret_cast<float*>(smem_raw);
   mcalf::LineTables L;
   mcalf::carve_line_tables(smem, T, L);
   const int p = blockIdx.x * kThreads + threadIdx.x;
@@ -48,8 +49,8 @@ voigt_tau_kernel(const float* __restrict__ dz,    // (B, T)
     mcalf::load_line_tables(L, b, T, dz, gain, av, dnu, tmin, mode);
     if (p < P) {
       tau[static_cast<size_t>(b) * P + p] =
-          L.any_damped ? mcalf::tau_at<true>(L, T, P, d0, c, p)
-                       : mcalf::tau_at<false>(L, T, P, d0, c, p);
+          L.any_damped ? mcalf::tau_at<true>(L, T, d0 + p, P, c)
+                       : mcalf::tau_at<false>(L, T, d0 + p, P, c);
     }
     __syncthreads();  // the next sample's tables overwrite these
   }

@@ -24,14 +24,17 @@ strongly damped transition.
 Each wrapper dispatches on where its tensors live: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise.  ``launches`` and
 ``tau_launches`` count kernel launches.  The kernels' design and what
-bounds them are noted in their sources.
+bounds them are noted in their sources; the fused kernel's launch geometry
+(a thread block cluster per sample) is :func:`fused_geometry`'s, here,
+where the CPU tests reach it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+import weakref
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +50,9 @@ __all__ = [
     "fused_loglike",
     "fused_loglike_plain",
     "check_supported",
+    "fused_geometry",
+    "fused_occupancy",
+    "FusedGeometry",
     "launches",
     "tau_launches",
 ]
@@ -60,8 +66,12 @@ tau_launches = 0
 
 #: shared memory a CTA may use on Hopper (bytes)
 _SMEM_LIMIT = 232448
+#: threads per CTA of the fused kernel (csrc/fused_loglike.cu kThreads)
+THREADS = 256
+#: CTAs per thread block cluster at most (csrc/fused_loglike.cu kMaxCluster)
+MAX_CLUSTER = 8
 #: 32-bit words of shared memory per transition (csrc/voigt_h.cuh kLineWords)
-_LINE_WORDS = 7 + N_TERMS + 1
+_LINE_WORDS = 8 + N_TERMS
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,8 +81,9 @@ def _fused_fn():
 
     fn = load().lib.mcalf_fused_loglike
     fn.restype = ctypes.c_int
-    # 16 pointers, B, T, P, half, kern_stride, cont_stride, asymm, stream
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    # 16 pointers, B, T, P, half, tile, cluster, smem, kern_stride,
+    # cont_stride, asymm, damped, stream
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     return fn
 
 
@@ -88,22 +99,92 @@ def _tau_fn():
     return fn
 
 
-def smem_bytes(T: int, P: int = 0, K: int = 0) -> int:
-    """Dynamic shared memory of one CTA: the line tables, plus the LSF taps
-    and the flux row for the fused kernel."""
-    return 4 * (_LINE_WORDS * T + K + P)
+class FusedGeometry(NamedTuple):
+    """How :func:`fused_loglike` lays one sample's spectrum over a thread
+    block cluster (``csrc/fused_loglike.cu``)."""
+
+    #: threads per CTA (one pixel each per step)
+    threads: int
+    #: CTAs per sample: one thread block cluster of this many CTAs
+    cluster: int
+    #: pixels each CTA owns, [r*tile, min((r+1)*tile, P)) for CTA r
+    tile: int
+    #: pixels each CTA reads from either neighbour (the LSF's half width)
+    halo: int
+    #: dynamic shared memory of one CTA in bytes
+    smem: int
+
+    def tiles(self, P: int):
+        """The (start, stop) pixel range of each CTA of the cluster."""
+        return [(r * self.tile, min((r + 1) * self.tile, P)) for r in range(self.cluster)]
+
+
+@functools.lru_cache(maxsize=None)
+def fused_geometry(T: int, P: int, half: int) -> FusedGeometry:
+    """The fused kernel's launch geometry for T transitions, P pixels and an
+    LSF of 2*half + 1 taps.
+
+    One tile of :data:`THREADS` pixels per CTA, at most
+    :data:`MAX_CLUSTER` CTAs per sample (the portable cluster size; a longer
+    spectrum gives each CTA a longer tile), every CTA owning at least one
+    pixel and, when there are neighbours, at least ``half`` (a halo then
+    comes from the immediate neighbour only).  Raises ``ValueError`` when a
+    CTA's line tables, taps and tile do not fit its shared memory."""
+    cluster = max(1, min(MAX_CLUSTER, -(-P // THREADS)))
+    while cluster > 1 and (-(-P // cluster) < half or (cluster - 1) * -(-P // cluster) >= P):
+        cluster -= 1
+    tile = -(-P // cluster)
+    smem = 4 * (_LINE_WORDS * T + (2 * half + 1) + tile + 2 * half)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"{T} transitions and a tile of {tile} pixels (P={P}, half={half}) "
+            f"need {smem} bytes of shared memory per CTA, over the "
+            f"{_SMEM_LIMIT} a Hopper CTA can hold"
+        )
+    return FusedGeometry(THREADS, cluster, tile, half, smem)
 
 
 def check_supported(T: int, P: int, half: int) -> None:
-    """Raise when one sample's spectrum and line tables do not fit the
-    shared memory of a Hopper CTA (the fused kernel's limit)."""
-    smem = smem_bytes(T, P, 2 * half + 1)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"spectrum of {P} pixels with {T} transitions needs {smem} bytes "
-            f"of shared memory per CTA, over the {_SMEM_LIMIT} a Hopper CTA "
-            "can hold"
-        )
+    """Raise when the fused kernel cannot take T transitions, P pixels and
+    this LSF (see :func:`fused_geometry`)."""
+    fused_geometry(T, P, half)
+
+
+def fused_occupancy(T: int, P: int, half: int, damped: bool) -> Tuple[int, int]:
+    """(CTAs resident per SM, clusters resident on the card) of the fused
+    kernel at this geometry, as the CUDA runtime computes them; ``damped``
+    picks the instantiation for a model with a strongly damped transition."""
+    from mcalf_torch.ops._build import load
+
+    g = fused_geometry(T, P, half)
+    ctas, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    fn = load().lib.mcalf_fused_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+    err = fn(T, P, half, g.tile, g.cluster, g.smem, int(damped),
+             ctypes.addressof(ctas), ctypes.addressof(clusters))
+    if err != 0:
+        raise RuntimeError(f"fused kernel occupancy query failed: CUDA error {err}")
+    return ctas.value, clusters.value
+
+
+#: id(modes) -> (weak reference to it, its version, any mode-2 transition)
+_DAMPED = {}
+
+
+def _any_damped(modes: torch.Tensor) -> bool:
+    """Whether the mode table holds a strongly damped transition: the fused
+    kernel is compiled once for each case.  Read from the device once per
+    table (one synchronisation) and kept while that tensor lives unchanged:
+    a model passes the same table to every call."""
+    hit = _DAMPED.get(id(modes))
+    if hit is not None and hit[0]() is modes and hit[1] == modes._version:
+        return hit[2]
+    damped = bool((modes == MODE_HJERT).any())
+    key = id(modes)
+    _DAMPED[key] = (weakref.ref(modes, lambda _: _DAMPED.pop(key, None)),
+                    modes._version, damped)
+    return damped
 
 
 def _check_cuda_inputs(B, T, P, named, modes) -> None:
@@ -186,7 +267,7 @@ def voigt_tau(dz, gain, av, dnu, d0, cw, tmin, modes) -> torch.Tensor:
     named = (("dz", dz), ("gain", gain), ("av", av), ("dnu", dnu), ("d0", d0),
              ("cw", cw), ("tmin", tmin))
     _check_cuda_inputs(B, T, P, named, modes)
-    if smem_bytes(T) > _SMEM_LIMIT:
+    if 4 * _LINE_WORDS * T > _SMEM_LIMIT:
         raise ValueError(f"{T} transitions need more shared memory than a CTA has")
     tau = torch.empty((B, P), dtype=torch.float32, device=dz.device)
     if B == 0 or P == 0:
@@ -247,7 +328,7 @@ def fused_loglike(
     """
     B, T = dz.shape
     P = cw.shape[0]
-    check_supported(T, P, half)
+    geo = fused_geometry(T, P, half)
     if dz.device.type == "cpu":
         return fused_loglike_plain(
             dz, gain, av, dnu, d0, cw, data, ivar, inv_noise, kern, cont,
@@ -278,10 +359,11 @@ def fused_loglike(
     err = _fused_fn()(
         *(x.data_ptr() for _, x in named), modes.data_ptr(),
         chi2.data_ptr(), n4.data_ptr(), n5.data_ptr(),
-        B, T, P, half,
+        B, T, P, half, geo.tile, geo.cluster, geo.smem,
         K if kern.shape[0] == B else 0,
         1 if cont.shape[0] == B else 0,
         int(bool(asymm)),
+        int(_any_damped(modes)),
         stream,
     )
     if err != 0:

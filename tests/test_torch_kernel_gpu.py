@@ -185,3 +185,85 @@ def test_entry_points_launch_the_tau_kernel(any_fwd):
     np.testing.assert_allclose(
         chi2.cpu().numpy(), cpu.chi2(p.cpu()).numpy(), rtol=1e-5, atol=0.1
     )
+
+
+RAGGED = [(P, half) for P in (1, 23, 255, 257, 2049, 5000) for half in (0, 11) if P > 2 * half]
+
+
+def _resampled(args, P, half, B, T=None):
+    """The model's fused_loglike arguments on a spectrum of P pixels: its d0
+    rows, c/lambda, data, ivar and 1/noise linearly resampled, the first B
+    samples and T transitions of its line tables; its own taps when half is
+    the model's, else one box of 2 half + 1 taps and one continuum shared by
+    the batch."""
+    dz, gain, av, dnu, d0, cw, data, ivar, inv_noise, kern, cont, tmin, modes = args
+    T = T or dz.shape[1]
+    x = np.linspace(0.0, cw.shape[0] - 1.0, P)
+    grid = np.arange(cw.shape[0], dtype=np.float64)
+
+    def resample(v):
+        a = v.double().cpu().numpy()
+        out = np.stack([np.interp(x, grid, row) for row in a.reshape(-1, a.shape[-1])])
+        return torch.from_numpy(out.reshape(a.shape[:-1] + (P,)).astype(np.float32)).cuda()
+
+    rows = lambda v: v[:B, :T].contiguous()
+    if half == (kern.shape[1] - 1) // 2:
+        kern, cont = kern[:B].contiguous(), cont[:B].contiguous()
+    else:
+        kern = torch.full((1, 2 * half + 1), 1.0 / (2 * half + 1), device=kern.device)
+        cont = cont[:1].contiguous()
+    return (rows(dz), rows(gain), rows(av), rows(dnu), resample(d0[:T]), resample(cw),
+            resample(data), resample(ivar), resample(inv_noise), kern, cont,
+            tmin[:T].contiguous(), modes[:T].contiguous())
+
+
+def _check_against_plain(args, half):
+    k = voigt_cuda.fused_loglike(*args, half=half, asymm=True)
+    q = voigt_cuda.fused_loglike_plain(*args, half=half, asymm=True)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(k[0].cpu().numpy(), q[0].cpu().numpy(), rtol=1e-5, atol=0.1)
+    for a, b in zip(k[1:], q[1:]):
+        assert np.max(np.abs(a.cpu().numpy() - b.cpu().numpy()), initial=0.0) <= 1.0
+
+
+@pytest.mark.parametrize("B", (100, 1))
+@pytest.mark.parametrize("P,half", RAGGED)
+def test_ragged_spectra_match_plain(any_fwd, P, half, B):
+    """Spectra that do not fill whole 256-pixel tiles, a cluster of 1 to 8
+    CTAs, with and without the LSF (half = 0), per-sample or shared taps."""
+    args = _resampled(_args(any_fwd, 100, seed=P), P, half, B)
+    _check_against_plain(args, half)
+
+
+@pytest.mark.parametrize("B", (100, 1))
+def test_long_spectrum_matches_plain(any_fwd, B):
+    """65,536 pixels: more than one CTA's shared memory could hold for the
+    whole spectrum, so each CTA of the cluster takes a 8,192-pixel tile."""
+    args = _resampled(_args(any_fwd, 100, seed=9), 65536, any_fwd.static.half, B, T=2)
+    assert voigt_cuda.fused_geometry(2, 65536, any_fwd.static.half).tile == 8192
+    _check_against_plain(args, any_fwd.static.half)
+
+
+@pytest.mark.parametrize("P,half", [(1999, 11), (257, 11), (5000, 0)])
+def test_repeated_launches_are_bit_identical(any_fwd, P, half):
+    """The chi^2 reduction has a fixed order (no float atomics): two launches
+    on the same inputs give the same bits, as the sampler's reproducibility
+    at a fixed seed needs."""
+    args = _resampled(_args(any_fwd, 100, seed=3), P, half, 100)
+    first = voigt_cuda.fused_loglike(*args, half=half, asymm=True)
+    for _ in range(3):
+        again = voigt_cuda.fused_loglike(*args, half=half, asymm=True)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_occupancy_at_the_production_batch(any_fwd):
+    """B=100 launches at least 132 CTAs, and at least 16 warps stay
+    resident per SM (the CUDA occupancy API)."""
+    s = any_fwd.static
+    g = voigt_cuda.fused_geometry(s.ntrans, s.npix, s.half)
+    damped = voigt_cuda.MODE_HJERT in any_fwd.modes.tolist()
+    ctas_per_sm, clusters = voigt_cuda.fused_occupancy(s.ntrans, s.npix, s.half, damped)
+    assert 100 * g.cluster >= 132
+    assert ctas_per_sm * g.threads // 32 >= 16
+    assert clusters >= 1

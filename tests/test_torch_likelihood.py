@@ -365,9 +365,12 @@ def test_non_harris_transition_raises():
 
 
 def test_kernel_wrapper_validation():
-    """What the CUDA route would refuse is refused before any launch."""
-    with pytest.raises(ValueError, match="shared memory"):
-        voigt_cuda.check_supported(2, 70000, 11)
+    """What the CUDA route would refuse is refused before any launch: line
+    tables or an LSF too large for a CTA's shared memory.  A long spectrum
+    is split over a cluster of CTAs and is no longer refused."""
     with pytest.raises(ValueError, match="shared memory"):
         voigt_cuda.check_supported(1700, 10, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        voigt_cuda.check_supported(2, 200000, 30000)
     voigt_cuda.check_supported(22, 1999, 11)
+    voigt_cuda.check_supported(2, 70000, 11)

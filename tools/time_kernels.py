@@ -1,0 +1,94 @@
+"""Device time of the port's two CUDA kernels, for any checkout of the port.
+
+    python3 tools/time_kernels.py [--root DIR]
+
+Imports ``mcalf_torch`` from DIR (default: this checkout) and times its
+``fused_loglike`` and ``voigt_tau`` wrappers on one CUDA card with
+chip_smoke.py's methods: device time (calls captured in a CUDA graph and
+replayed between CUDA events, without the wrapper's host time) and call
+time (CUDA events around single calls), and the wrapper's host time per
+call (200 calls enqueued back to back on the host clock, before the
+synchronisation), on the flagship and the narrow flagship at B=100 and
+200.  Run it against an older checkout (a ``git archive`` of it) and this
+one in turns, one after the other on the same card, to compare two
+versions of a kernel: the inputs are the same in both, made from a seed.
+Prints one line per cell, the card's name and power limit, and a JSON line
+with every time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def _host_us(fn, n=200):
+    """Host time of one call: n calls enqueued back to back, timed on the
+    host clock before the synchronisation that waits for the device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * host / n
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(HERE), help="checkout whose mcalf_torch is timed")
+    root = Path(ap.parse_args().root).resolve()
+    sys.path.insert(0, str(root))
+    # this checkout's chip_smoke.py: its helpers import mcalf_torch lazily,
+    # so they find the one under --root
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.ops import voigt_cuda
+
+    if Path(voigt_cuda.__file__).resolve().parents[2] != root:
+        raise RuntimeError(f"imported {voigt_cuda.__file__}, not the one under {root}")
+    smi = smoke.phase_device()
+    smoke.phase_build()
+    out = {"root": str(root), "card": smi}
+    for name in ("flagship", "narrow"):
+        fwd = make_torch_forward(smoke._model(name), "cuda")
+        s = fwd.static
+        for B in (100, 200):
+            args = smoke._fused_args(fwd, smoke._batch(s.ndim, B, False, seed=B, layout=None))[1]
+            targs = smoke._tau_args(args)
+            fused = lambda: voigt_cuda.fused_loglike(*args, half=s.half, asymm=False)
+            tau = lambda: voigt_cuda.voigt_tau(*targs)
+            rec = {
+                "fused_ms": [smoke._device_ms(fused), smoke._device_ms(fused)],
+                "fused_call_ms": smoke._median_ms(fused),
+                "tau_ms": [smoke._device_ms(tau), smoke._device_ms(tau)],
+                "tau_call_ms": smoke._median_ms(tau),
+                "fused_host_us": _host_us(fused),
+                "tau_host_us": _host_us(tau),
+            }
+            out[f"{name} B={B}"] = rec
+            print(
+                f"[time] {name} B={B}: fused device {rec['fused_ms'][0]:.4f}/"
+                f"{rec['fused_ms'][1]:.4f} ms, call {rec['fused_call_ms']:.4f} ms; "
+                f"voigt_tau device {rec['tau_ms'][0]:.4f}/{rec['tau_ms'][1]:.4f} ms, "
+                f"call {rec['tau_call_ms']:.4f} ms; host per call: fused "
+                f"{rec['fused_host_us']:.1f} us, voigt_tau {rec['tau_host_us']:.1f} us  [{smi}]"
+            )
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
