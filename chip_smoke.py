@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -119,17 +120,25 @@ def phase_build() -> None:
 
     built = load()
     print(f"[2 build] {built.path.name} built in {built.build_seconds:.2f} s")
-    # ptxas names each function before its counts: the two kernels and the
-    # device function they call
+    for name, line in ptxas_counts(built.log):
+        print(f"[2 build] ptxas {name}: {line}")
+
+
+def ptxas_counts(log: str):
+    """(function, line) for ptxas's register and spill lines: each kernel
+    instantiation (Harris-only or damped, and the tau kernel's samples per
+    thread S) and the device function they call."""
     name = "?"
-    for ln in built.log.splitlines():
+    for ln in log.splitlines():
         if "entry function" in ln or "Function properties for" in ln:
-            name = next((k for k in ("voigt_tau_kernel", "fused_loglike_kernel",
-                                     "wofz_real_916") if k in ln), name)
-            if name == "fused_loglike_kernel":  # one instantiation per case
-                name += "<damped>" if "ILb1E" in ln else "<harris>"
+            m = re.search(r"(voigt_tau_kernel|fused_loglike_kernel)ILb([01])E(?:Li(\d+)E)?", ln)
+            if m:
+                name = f"{m[1]}<{'damped' if m[2] == '1' else 'harris'}"
+                name += f", S={m[3]}>" if m[3] else ">"
+            elif "wofz_real_916" in ln:
+                name = "wofz_real_916"
         elif "registers" in ln or "spill" in ln:
-            print(f"[2 build] ptxas {name}: {ln.strip().removeprefix('ptxas info    : ')}")
+            yield name, ln.strip().removeprefix("ptxas info    : ")
 
 
 def _model(name):

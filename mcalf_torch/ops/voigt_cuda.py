@@ -24,9 +24,10 @@ strongly damped transition.
 Each wrapper dispatches on where its tensors live: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise.  ``launches`` and
 ``tau_launches`` count kernel launches.  The kernels' design and what
-bounds them are noted in their sources; the fused kernel's launch geometry
-(a thread block cluster per sample) is :func:`fused_geometry`'s, here,
-where the CPU tests reach it.
+bounds them are noted in their sources; their launch geometries (the fused
+kernel's thread block cluster per sample, the tau kernel's sample groups
+and pixel tiles dealt out in one wave) are :func:`fused_geometry`'s and
+:func:`tau_geometry`'s, here, where the CPU tests reach them.
 """
 
 from __future__ import annotations
@@ -53,6 +54,9 @@ __all__ = [
     "fused_geometry",
     "fused_occupancy",
     "FusedGeometry",
+    "tau_geometry",
+    "tau_occupancy",
+    "TauGeometry",
     "launches",
     "tau_launches",
 ]
@@ -72,6 +76,21 @@ THREADS = 256
 MAX_CLUSTER = 8
 #: 32-bit words of shared memory per transition (csrc/voigt_h.cuh kLineWords)
 _LINE_WORDS = 8 + N_TERMS
+#: threads per CTA of the tau kernel at most (csrc/voigt_tau.cu kMaxThreads)
+TAU_MAX_THREADS = 256
+#: samples per thread of the tau kernel's Harris-only and damped
+#: instantiations (csrc/voigt_tau.cu kHarrisSamples, kDampedSamples)
+TAU_SAMPLES = {False: 4, True: 2}
+#: CTAs of TAU_MAX_THREADS per SM the tau kernel's launch bounds allow
+#: (csrc/voigt_tau.cu kHarrisMinCtas, kDampedMinCtas)
+TAU_MIN_CTAS = {False: 4, True: 3}
+#: threads per CTA (pixels per tile) of the tau kernel's geometry
+TAU_THREADS = 128
+#: streaming multiprocessors of an H100 SXM
+H100_SMS = 132
+#: Hopper: registers and shared memory (bytes, 1 KB of it reserved per CTA)
+#: of one SM, threads and CTAs resident on one SM at most
+_SM_REGISTERS, _SM_SMEM, _SM_THREADS, _SM_CTAS = 65536, 233472, 2048, 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,10 +111,11 @@ def _tau_fn():
     """The tau kernel's C entry point (the library is built at first use)."""
     from mcalf_torch.ops._build import load
 
-    fn = load().lib.mcalf_voigt_tau
+    fn = load().lib.mcalf_voigt_tau_groups
     fn.restype = ctypes.c_int
-    # 9 pointers, B, T, P, stream
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    # 9 pointers, B, T, P, damped, samples, threads, ntiles, chunk, grid,
+    # smem, stream
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     return fn
 
 
@@ -168,12 +188,119 @@ def fused_occupancy(T: int, P: int, half: int, damped: bool) -> Tuple[int, int]:
     return ctas.value, clusters.value
 
 
+class TauGeometry(NamedTuple):
+    """How :func:`voigt_tau` deals its work to CTAs (``csrc/voigt_tau.cu``):
+    work item i is pixel tile i % ntiles of sample group i // ntiles, and
+    CTA c takes items [c*chunk, (c+1)*chunk)."""
+
+    #: threads per CTA, one pixel each per work item
+    threads: int
+    #: samples per thread (a sample group); the last group may be partial
+    samples: int
+    #: pixels per tile (= threads)
+    tile: int
+    #: pixel tiles per sample group
+    ntiles: int
+    #: consecutive work items per CTA
+    chunk: int
+    #: CTAs launched
+    grid: int
+    #: dynamic shared memory of one CTA in bytes (one group's line tables)
+    smem: int
+
+    def items(self, cta: int, B: int, P: int):
+        """The (samples, pixels) ranges of CTA ``cta``'s work items."""
+        S, n = self.samples, -(-B // self.samples) * self.ntiles
+        out = []
+        for i in range(cta * self.chunk, min((cta + 1) * self.chunk, n)):
+            g, j = divmod(i, self.ntiles)
+            out.append((range(g * S, min(g * S + S, B)),
+                        range(j * self.tile, min(j * self.tile + self.tile, P))))
+        return out
+
+
+def _tau_smem(T: int, samples: int) -> int:
+    """Bytes of shared memory of one sample group's line tables; raises
+    ``ValueError`` when they do not fit a Hopper CTA."""
+    smem = 4 * _LINE_WORDS * T * samples
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"{T} transitions of {samples} samples need {smem} bytes of shared "
+            f"memory per CTA, over the {_SMEM_LIMIT} a Hopper CTA can hold"
+        )
+    return smem
+
+
+def _tau_resident(threads: int, damped: bool, smem: int) -> int:
+    """CTAs resident per SM as the launch bounds' register cap gives them:
+    a lower bound of what the occupancy API reports (the kernel may use
+    fewer registers than the cap)."""
+    per_thread = _SM_REGISTERS // (TAU_MAX_THREADS * TAU_MIN_CTAS[damped]) // 8 * 8
+    return max(1, min(_SM_CTAS, _SM_THREADS // threads,
+                      _SM_REGISTERS // (per_thread * threads),
+                      _SM_SMEM // (smem + 1024)))
+
+
+def _tau_layout(B, T, P, samples, threads, slots) -> TauGeometry:
+    """The geometry for S = samples and a tile of `threads` pixels, the work
+    items dealt in runs of equal length to at most `slots` CTAs (every item
+    its own CTA when slots is None)."""
+    smem = _tau_smem(T, samples)
+    ntiles = -(-P // threads)
+    items = -(-B // samples) * ntiles
+    if items >= 2**31:
+        raise ValueError(f"B={B}, P={P}: {items} work items, over 2**31 - 1")
+    chunk = max(1, -(-items // slots)) if slots else 1
+    return TauGeometry(threads, samples, threads, ntiles, chunk, -(-items // chunk), smem)
+
+
+def tau_geometry(B: int, T: int, P: int, damped: bool, sms: int = H100_SMS,
+                 resident: int | None = None) -> TauGeometry:
+    """The tau kernel's launch geometry for B samples, T transitions and P
+    pixels; ``damped`` picks the instantiation (and its S).
+
+    Tiles of :data:`TAU_THREADS` pixels, groups of ``TAU_SAMPLES[damped]``
+    samples, the work items dealt in runs of equal length to at most ``sms``
+    x ``resident`` CTAs (resident CTAs per SM: the card's own count from
+    :func:`tau_occupancy`, by default what the register cap allows), so the
+    grid is one wave.  Raises ``ValueError`` when a group's line tables do
+    not fit a CTA's shared memory."""
+    S = TAU_SAMPLES[damped]
+    if resident is None:
+        resident = _tau_resident(TAU_THREADS, damped, _tau_smem(T, S))
+    return _tau_layout(B, T, P, S, TAU_THREADS, sms * resident)
+
+
+@functools.lru_cache(maxsize=None)
+def tau_occupancy(T: int, damped: bool, threads: int = TAU_THREADS,
+                  samples: int | None = None) -> int:
+    """CTAs of the tau kernel resident per SM at T transitions, as the CUDA
+    runtime computes them; ``damped`` picks the instantiation, ``samples``
+    its S (the instantiation's own by default)."""
+    from mcalf_torch.ops._build import load
+
+    S = TAU_SAMPLES[damped] if samples is None else samples
+    ctas = ctypes.c_int(0)
+    fn = load().lib.mcalf_voigt_tau_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    err = fn(int(damped), S, threads, _tau_smem(T, S), ctypes.addressof(ctas))
+    if err != 0:
+        raise RuntimeError(f"tau kernel occupancy query failed: CUDA error {err}")
+    return ctas.value
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 #: id(modes) -> (weak reference to it, its version, any mode-2 transition)
 _DAMPED = {}
 
 
 def _any_damped(modes: torch.Tensor) -> bool:
-    """Whether the mode table holds a strongly damped transition: the fused
+    """Whether the mode table holds a strongly damped transition: each
     kernel is compiled once for each case.  Read from the device once per
     table (one synchronisation) and kept while that tensor lives unchanged:
     a model passes the same table to every call."""
@@ -267,21 +394,32 @@ def voigt_tau(dz, gain, av, dnu, d0, cw, tmin, modes) -> torch.Tensor:
     named = (("dz", dz), ("gain", gain), ("av", av), ("dnu", dnu), ("d0", d0),
              ("cw", cw), ("tmin", tmin))
     _check_cuda_inputs(B, T, P, named, modes)
-    if 4 * _LINE_WORDS * T > _SMEM_LIMIT:
-        raise ValueError(f"{T} transitions need more shared memory than a CTA has")
+    damped = _any_damped(modes)
+    index = dz.device.index if dz.device.index is not None else torch.cuda.current_device()
+    geo = tau_geometry(B, T, P, damped, sms=_sm_count(index),
+                       resident=tau_occupancy(T, damped))
     tau = torch.empty((B, P), dtype=torch.float32, device=dz.device)
     if B == 0 or P == 0:
         return tau
-    stream = torch.cuda.current_stream(dz.device).cuda_stream
-    err = _tau_fn()(
-        *(x.data_ptr() for _, x in named), modes.data_ptr(), tau.data_ptr(),
-        B, T, P, stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"voigt_tau kernel launch failed: CUDA error {err}")
+    _launch_tau(named, modes, tau, damped, geo)
     global tau_launches
     tau_launches += 1
     return tau
+
+
+def _launch_tau(named, modes, tau, damped: bool, geo: TauGeometry) -> None:
+    """One launch of the tau kernel's instantiation for (damped,
+    geo.samples) at this geometry, on the current stream."""
+    B, P = tau.shape
+    T = modes.shape[0]
+    stream = torch.cuda.current_stream(tau.device).cuda_stream
+    err = _tau_fn()(
+        *(x.data_ptr() for _, x in named), modes.data_ptr(), tau.data_ptr(),
+        B, T, P, int(damped), geo.samples, geo.threads, geo.ntiles, geo.chunk,
+        geo.grid, geo.smem, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"voigt_tau kernel launch failed: CUDA error {err}")
 
 
 def fused_loglike_plain(
