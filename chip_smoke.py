@@ -7,7 +7,8 @@ Phases, each printing lines tagged with its number:
 1. device: requires CUDA (exits non-zero without it) and prints the card's
    name and power limit as nvidia-smi gives them;
 2. build: compiles both kernels (csrc/fused_loglike.cu, csrc/voigt_tau.cu)
-   with one nvcc call and prints ptxas's registers and spills per kernel;
+   with one nvcc call and prints ptxas's registers and spills per kernel
+   instantiation (each kernel's Harris-only and damped one);
 3. fused kernel vs plain, the same inputs at full width, B in {100, 37, 1},
    a prior-spread and a z-clustered batch, log L to rtol 1e-5 / atol 0.05
    with the -inf pattern exact (the JAX package's fused-vs-XLA tolerance):
@@ -21,12 +22,17 @@ Phases, each printing lines tagged with its number:
    B in {1, 100}), chi^2 to rtol 1e-5 / atol 0.1 and n4/n5 within 1, and two
    launches on the same inputs bit-identical;
 4. tau kernel vs plain on the flagship, the narrow flagship and the mixed
-   model, B in {100, 200, 13}: |dtau| / (|tau| + 1e-3) < 3e-5 (the JAX
-   package's tau bar); and reconstruct / chi2 / loglike('wrap') on CUDA
-   each launch the tau kernel once;
+   model, B in {100, 200, 13, 1000}: |dtau| / (|tau| + 1e-3) < 3e-5 (the
+   JAX package's tau bar), the Harris-only instantiation picked for the
+   flagship and the damped one for the others; reconstruct / chi2 /
+   loglike('wrap') on CUDA each launch the tau kernel once; then the narrow
+   flagship at B = 65,537 (over a grid dimension's 65,535 blocks, a
+   partial last sample group), its first 100 and last 300 rows against
+   plain;
 5. timing, the card's name and power limit on every line: the fused kernel
    on the flagship and the narrow flagship, the tau kernel on both, at B=100
-   and 200, and ``fwd.loglike_cube`` and ``fwd.reconstruct`` per call.  A
+   and 200, and ``fwd.loglike_cube`` and ``fwd.reconstruct`` per call; the
+   tau kernel and ``reconstruct`` again at B=1000, the size of a posterior.  A
    kernel's device time (``ms``) leaves the wrapper's host time out: 20
    calls captured back to back in a CUDA graph, the graph replayed between
    two CUDA events, the median of 10 replays over 20; its call time
@@ -35,7 +41,9 @@ Phases, each printing lines tagged with its number:
    and plain in turns (plain, kernel, kernel, plain).  Once, on the
    flagship at B=100, torch.profiler's kernel time cross-checks the graph
    method.  Prints the fused kernel's cluster and tile geometry and its
-   resident CTAs per SM and clusters per card (the CUDA occupancy API);
+   resident CTAs per SM and clusters per card, and the tau kernel's sample
+   groups, tiles and resident CTAs per SM at each batch (the CUDA occupancy
+   API);
 6. the slices: ``mcalf_torch.cli.main`` on a copy of testdata/fit.cfg at
    full width (ndim 34, nlive 200, B=100, canon_layout, the kernel on),
    depth cut by max_samples, then the same on the narrow flagship; checks
@@ -51,7 +59,8 @@ Phases, each printing lines tagged with its number:
    changes from 1/30 to 1/37 where the posterior lies).
 
 Then one JSON line with the kernels' launch counts, errors, device and
-call times and bounds (at the narrow flagship, B=100), and as the last
+call times and bounds (at the narrow flagship, B=100; the tau kernel's at
+every timed model and batch under ``by_batch``), and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises.  The port
 must not import jax or mcalf_tpu: checked at the end.
 """
@@ -125,16 +134,15 @@ def phase_build() -> None:
 
 
 def ptxas_counts(log: str):
-    """(function, line) for ptxas's register and spill lines: each kernel
-    instantiation (Harris-only or damped, and the tau kernel's samples per
-    thread S) and the device function they call."""
+    """(function, line) for ptxas's register and spill lines: each kernel's
+    Harris-only and damped instantiation, and the device function they
+    call."""
     name = "?"
     for ln in log.splitlines():
         if "entry function" in ln or "Function properties for" in ln:
-            m = re.search(r"(voigt_tau_kernel|fused_loglike_kernel)ILb([01])E(?:Li(\d+)E)?", ln)
+            m = re.search(r"(voigt_tau_kernel|fused_loglike_kernel)ILb([01])E", ln)
             if m:
-                name = f"{m[1]}<{'damped' if m[2] == '1' else 'harris'}"
-                name += f", S={m[3]}>" if m[3] else ">"
+                name = f"{m[1]}<{'damped' if m[2] == '1' else 'harris'}>"
             elif "wofz_real_916" in ln:
                 name = "wofz_real_916"
         elif "registers" in ln or "spill" in ln:
@@ -231,6 +239,7 @@ def phase_kernel_check() -> float:
 
 RAGGED_P = (1, 23, 255, 257, 2049, 5000)
 LONG_P = 65536  # over the shared-memory limit of one CTA per sample
+BIG_B = 65537  # over CUDA's grid-dimension limit of 65,535 blocks
 
 
 def _resampled(args, P, half, B, T=None):
@@ -325,7 +334,11 @@ def phase_tau_check() -> float:
         model = _model(name)
         fwd = make_torch_forward(model, "cuda")
         s = fwd.static
-        for B in (100, 200, 13):
+        damped = voigt_cuda._any_damped(fwd.modes)
+        if damped != (name != "flagship"):
+            raise AssertionError(f"tau {name}: the {'damped' if damped else 'Harris-only'} "
+                                 "instantiation picked")
+        for B in (100, 200, 13, 1000):
             u = _batch(s.ndim, B, B == 200, seed=3 * B, layout=model.canon_layout())
             args = _tau_args(_fused_args(fwd, u)[1])
             k = voigt_cuda.voigt_tau(*args)
@@ -336,9 +349,12 @@ def phase_tau_check() -> float:
                 raise AssertionError(f"tau {name} B={B}: max rel err {err}")
             abs_err = float((k - q).abs().max())
             worst = max(worst, abs_err)
+            g = voigt_cuda.tau_geometry(B, s.ntrans, s.npix, damped)
             print(
-                f"[4 tau] {name} T={s.ntrans} P={s.npix} B={B}: max |dtau|/(|tau|+1e-3) "
-                f"{err:.3g}, max |dtau| {abs_err:.3g}, max tau {float(q.max()):.4g}"
+                f"[4 tau] {name} T={s.ntrans} P={s.npix} B={B} "
+                f"({'damped' if damped else 'harris'}, S={g.samples}, {g.grid} CTAs of "
+                f"{g.threads}): max |dtau|/(|tau|+1e-3) {err:.3g}, max |dtau| "
+                f"{abs_err:.3g}, max tau {float(q.max()):.4g}"
             )
         # the entry points: one tau launch per call on the card
         p = _fused_args(fwd, _batch(s.ndim, 16, False, seed=1, layout=None))[0]
@@ -354,6 +370,23 @@ def phase_tau_check() -> float:
                                      f"{bool(torch.isfinite(out).all())}")
         print(f"[4 tau] {name}: reconstruct, chi2, loglike(wrap) each launched "
               "voigt_tau once")
+    # more samples than a grid dimension holds (65,535), the last group
+    # partial: rows on both sides of 65,535 against the plain version
+    fwd = make_torch_forward(_model("narrow"), "cuda")
+    B = BIG_B
+    args = _tau_args(_fused_args(fwd, _batch(fwd.static.ndim, B, False, seed=7, layout=None))[1])
+    k = voigt_cuda.voigt_tau(*args)
+    rows = torch.cat([torch.arange(0, 100), torch.arange(B - 300, B)]).cuda()
+    q = voigt_cuda.voigt_tau_plain(*(a[rows] for a in args[:4]), *args[4:])
+    torch.cuda.synchronize()
+    err = float(((k[rows] - q).abs() / (q.abs() + 1e-3)).max())
+    if not err < 3e-5:
+        raise AssertionError(f"tau narrow B={B}: max rel err {err}")
+    worst = max(worst, float((k[rows] - q).abs().max()))
+    g = voigt_cuda.tau_geometry(B, fwd.static.ntrans, fwd.static.npix, True)
+    print(f"[4 tau] narrow B={B} (S={g.samples}, {g.grid} CTAs, last group of "
+          f"{B - (g.grid // g.ntiles - 1) * g.samples}): rows 0-99 and {B - 300}-{B - 1} "
+          f"against plain, max |dtau|/(|tau|+1e-3) {err:.3g}")
     return worst
 
 
@@ -545,6 +578,29 @@ def phase_timing(smi: str) -> dict:
                       f"{show(pf)}, voigt_tau {show(pt)} (graph method "
                       f"{rec['fused'][0]:.4f}, {rec['tau'][0]:.4f} ms)  [{smi}]")
                 rec["profiled"] = (pf, pt)
+        # the tau kernel's posterior batch (about 10^3 equal-weight rows)
+        u = _batch(s.ndim, 1000, False, seed=1000, layout=None)
+        p, args = _fused_args(fwd, u)
+        targs = _tau_args(args)
+        tau = lambda: voigt_cuda.voigt_tau(*targs)
+        tk = [_device_ms(tau), _device_ms(tau)]
+        tc = _median_ms(tau)
+        ms_rec = _median_ms(lambda: fwd.reconstruct(p))
+        tb, tby = _bound(targs, False)
+        out[name, 1000] = dict(tau=(float(np.mean(tk)), tc, None, tb, tby))
+        print(
+            f"[5 timing] {name} B=1000: voigt_tau device {tk[0]:.4f}/{tk[1]:.4f} ms, call "
+            f"{tc:.4f} ms, bound {tb:.4f} ms ({tby}); reconstruct {ms_rec:.4f} ms/call  [{smi}]"
+        )
+        for B in (100, 200, 1000):
+            g = voigt_cuda.tau_geometry(B, s.ntrans, s.npix, damped)
+            ctas = voigt_cuda.tau_occupancy(damped, g)
+            print(
+                f"[5 timing] {name} tau geometry B={B} ({'damped' if damped else 'harris'} "
+                f"kernel): groups of S={g.samples} samples x tiles of {g.tile} pixels, "
+                f"{g.grid} CTAs of {g.threads} threads, {g.smem} B of shared memory each; "
+                f"{ctas} CTAs ({ctas * g.threads // 32} warps) resident per SM"
+            )
     return out
 
 
@@ -654,10 +710,12 @@ def phase_tau_path(posterior: np.ndarray) -> dict:
                                   ("loglike", ll[:16], cwrap.loglike(pc), 0.05)):
         if not np.allclose(got.double().cpu().numpy(), want.double().numpy(), rtol=1e-5, atol=atol):
             raise AssertionError(f"tau path {what} differs from the CPU")
+    g = voigt_cuda.tau_geometry(len(p), fwd.static.ntrans, fwd.static.npix, True)
     print(
         f"[7 tau path] narrow posterior rows {len(p)}: reconstruct, chi2, "
-        f"loglike(wrap) in {wall * 1e3:.2f} ms, voigt_tau launches {launches}; "
-        f"max |dflux| vs CPU plain {dflux:.3g}, min chi2 {float(chi2.min()):.2f}"
+        f"loglike(wrap) in {wall * 1e3:.2f} ms, voigt_tau launches {launches} "
+        f"(groups of S={g.samples}, {g.grid} CTAs each); max |dflux| vs CPU plain "
+        f"{dflux:.3g}, min chi2 {float(chi2.min()):.2f}"
     )
     return {"launches": launches}
 
@@ -753,6 +811,9 @@ def main() -> int:
             "bound_by": t_by,
             "library_ms": None,
             "at": at,
+            # device ms (mean of two), call ms and bound ms per model and batch
+            "by_batch": {f"{m} B={B}": [round(v, 5) for v in (r["tau"][0], r["tau"][1], r["tau"][3])]
+                         for (m, B), r in timing.items()},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

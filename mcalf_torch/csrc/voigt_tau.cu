@@ -20,15 +20,19 @@
 //     (voigt_cuda._any_damped): Harris-only, whose registers allow
 //     kHarrisMinCtas CTAs of kMaxThreads per SM, and damped, whose
 //     non-inlined Algorithm-916 call needs more (kDampedMinCtas).
-//   * Several samples per thread: a thread owns one pixel of S samples (a
-//     sample group), loads d0[t, p] once per transition and updates S
-//     independent sums, S chains for the scheduler and 1/S of the d0 reads.
-//     The last group's samples past B compute nothing and write nothing.
-//   * Whole waves: the work items, (sample group, pixel tile) pairs, are
-//     dealt to at most SMs x resident CTAs, each taking a run of consecutive
-//     items (voigt_cuda.tau_geometry), so the grid is one wave and a CTA
-//     fills its group's line tables (and the 916 y-only quantities) once per
-//     group, not once per tile.  No grid dimension limits B.
+//   * Several samples per thread: a CTA takes one pixel tile (a pixel per
+//     thread) of one group of S samples; a thread loads d0[t, p] once per
+//     transition and updates S independent sums, S chains for the scheduler
+//     and 1/S of the d0 reads and table loads.  S (up to 4, or 2 for the
+//     damped kernel) is chosen per launch by voigt_cuda.tau_geometry: the
+//     largest that still gives the card enough warps of work.  The sums of
+//     a group of n samples are an unrolled loop of n, so the last group's
+//     samples past B compute nothing and write nothing.
+//   * One CTA per (sample group, pixel tile) work item, a one-dimensional
+//     grid (no grid dimension limits B).  Dealing the items in runs to one
+//     wave of CTAs, which fills each group's tables once per run, measured
+//     slower in every cell on an H100: the card's own scheduling of many
+//     short CTAs evens out the data-dependent cost of the tiles better.
 // Per element the order of operations is the previous one-sample kernel's
 // (the same fused multiply-add for u, the Harris transitions then the damped
 // ones, each in ascending t), so tau is bit for bit the same.
@@ -42,35 +46,41 @@ namespace {
 using mcalf::kTerms;
 
 constexpr int kMaxThreads = 256;  // threads per CTA at most
-constexpr int kHarrisSamples = 4;  // S of the Harris-only instantiation
-constexpr int kDampedSamples = 2;  // S of the damped instantiation
+// Samples per group (S) at most: four sums in flight for the Harris-only
+// kernel; two for the damped one, whose sums live across the 916 call
+// (with four, 80 registers no longer hold them without spilling).
+constexpr int kHarrisMaxSamples = 4;
+constexpr int kDampedMaxSamples = 2;
 // Resident CTAs of kMaxThreads per SM the registers must allow: 64
 // registers for the Harris-only kernel, 80 for the damped one (the 916 call).
 constexpr int kHarrisMinCtas = 4;
 constexpr int kDampedMinCtas = 3;
 
+template <bool kDamped>
+constexpr int max_samples() {
+  return kDamped ? kDampedMaxSamples : kHarrisMaxSamples;
+}
+
 // Shared memory of a group's tables: per (transition t, sample s), record
-// r = t S + s, the two 16-byte LineTables words rec[2r], rec[2r + 1] and
+// r = t S + s, the two 16-byte LineTables words rec[2r], rec[2r + 1], and
 // the kTerms series denominators den[r kTerms ...] (mode 2 only).
-template <int S>
-constexpr size_t group_smem(int T) {
+size_t group_smem(int T, int S) {
   return sizeof(float) * static_cast<size_t>(mcalf::kLineWords) * S * T;
 }
 
-// Fills the tables of samples b0 .. b0 + S - 1 that lie below B (the
-// records of the others are never read); every thread of the CTA takes
-// part, and all of them see the filled tables on return.  A mode-0
+// Fills the tables of samples b0 .. b0 + n - 1 of a group of S (the records
+// of the group's other samples are never read); every thread of the CTA
+// takes part, and all of them see the filled tables on return.  A mode-0
 // transition gets the threshold +inf, as in mcalf::load_line_tables, whose
 // arithmetic this repeats per sample.
-template <bool kDamped, int S>
+template <bool kDamped>
 __device__ __forceinline__ void load_group(
-    float4* rec, float* den, int b0, int B, int T, const float* __restrict__ dz,
-    const float* __restrict__ gain, const float* __restrict__ av,
-    const float* __restrict__ dnu, const float* __restrict__ tmin,
-    const int* __restrict__ mode) {
+    float4* rec, float* den, int S, int b0, int n, int T,
+    const float* __restrict__ dz, const float* __restrict__ gain,
+    const float* __restrict__ av, const float* __restrict__ dnu,
+    const float* __restrict__ tmin, const int* __restrict__ mode) {
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
-  const int n = min(S, B - b0);
   int harris = 0;
   for (int r = tid; r < S * T; r += nth) {
     const int t = r / S;
@@ -110,16 +120,17 @@ __device__ __forceinline__ void load_group(
   __syncthreads();
 }
 
-// tau at one pixel (c = c/lambda there) of N samples whose records lie S
-// apart from `rec` (and their denominators S kTerms apart from `den`): the
-// per-sample arithmetic of mcalf::tau_at, N sums in flight.  d0col points
-// at the pixel's d0[0, p], rows `stride` floats apart; neighbouring threads
-// take neighbouring pixels, so the reads are coalesced and the table stays
-// resident in L2.
-template <bool kDamped, int S, int N>
-__device__ __forceinline__ void tau_samples(const float4* rec, const float* den,
-                                            int T, const float* __restrict__ d0col,
-                                            int stride, float c, float (&tau)[N]) {
+// tau at one pixel (c = c/lambda there) of the first N samples of a group
+// of S, written to out[s P]: the per-sample arithmetic of mcalf::tau_at,
+// N sums in flight.  d0col points at the pixel's d0[0, p], rows P floats
+// apart; neighbouring threads take neighbouring pixels, so the reads are
+// coalesced and the table stays resident in L2.
+template <bool kDamped, int N>
+__device__ __forceinline__ void group_tau(const float4* rec, const float* den,
+                                          int S, int T, int P,
+                                          const float* __restrict__ d0col,
+                                          float c, float* __restrict__ out) {
+  float tau[N];
 #pragma unroll
   for (int s = 0; s < N; ++s) tau[s] = 0.0f;
   // Each transition's d0 is loaded one transition ahead, so its L2 latency
@@ -129,45 +140,48 @@ __device__ __forceinline__ void tau_samples(const float4* rec, const float* den,
   const int nh = (kDamped && !mcalf::any_harris) ? 0 : T;  // skip an idle loop
   for (int t = 0; t < nh; ++t) {
     const float d = dnext;
-    d0p += stride;
+    d0p += P;
     if (t + 1 < T) dnext = *d0p;
     const float4* r = rec + 2 * S * t;
     if (kDamped && __float_as_int(r[1].w) == 2) continue;  // mode: same for all s
 #pragma unroll
     for (int s = 0; s < N; ++s) {
-      const float4 q = r[2 * s];            // dz, 1/dnu, gain, a
-      const float tmin = r[2 * s + 1].x;    // +inf in mode 0
+      const float4 q = r[2 * s];          // dz, 1/dnu, gain, a
+      const float thr = r[2 * s + 1].x;   // tmin, +inf in mode 0
       const float u = (d + q.x * c) * q.y;
       const float u2 = u * u;
-      const float H = !(u2 < tmin) ? mcalf::hjert_wing(u2, q.w)
-                                   : mcalf::hjert_harris(u2, q.w);
+      const float H = !(u2 < thr) ? mcalf::hjert_wing(u2, q.w)
+                                  : mcalf::hjert_harris(u2, q.w);
       tau[s] = tau[s] + q.z * H;
     }
   }
-  if (!kDamped) return;
-  d0p = d0col;
-  for (int t = 0; t < T; ++t, d0p += stride) {
-    const float4* r = rec + 2 * S * t;
-    if (__float_as_int(r[1].w) != 2) continue;
-    const float d = *d0p;
+  if (kDamped) {
+    d0p = d0col;
+    for (int t = 0; t < T; ++t, d0p += P) {
+      const float4* r = rec + 2 * S * t;
+      if (__float_as_int(r[1].w) != 2) continue;
+      const float d = *d0p;
 #pragma unroll
-    for (int s = 0; s < N; ++s) {
-      const float4 q = r[2 * s];
-      const float4 w = r[2 * s + 1];  // tmin, erfcx(a), sigma1, mode
-      const float u = (d + q.x * c) * q.y;
-      const float a = q.w;
-      const float H =
-          (u * u + a * a < MCALF_R2_SWITCH)
-              ? mcalf::wofz_real_916(fabsf(u), a, w.y, w.z, den + (S * t + s) * kTerms)
-              : mcalf::wofz_real_asym(u, a);
-      tau[s] = tau[s] + q.z * H;
+      for (int s = 0; s < N; ++s) {
+        const float4 q = r[2 * s];
+        const float4 w = r[2 * s + 1];  // tmin, erfcx(a), sigma1, mode
+        const float u = (d + q.x * c) * q.y;
+        const float a = q.w;
+        const float H =
+            (u * u + a * a < MCALF_R2_SWITCH)
+                ? mcalf::wofz_real_916(fabsf(u), a, w.y, w.z, den + (S * t + s) * kTerms)
+                : mcalf::wofz_real_asym(u, a);
+        tau[s] = tau[s] + q.z * H;
+      }
     }
   }
+#pragma unroll
+  for (int s = 0; s < N; ++s) out[static_cast<size_t>(s) * P] = tau[s];
 }
 
-// CTA c takes work items [c chunk, (c + 1) chunk); item i is pixel tile
-// i % ntiles (blockDim.x pixels, one per thread) of sample group i / ntiles.
-template <bool kDamped, int S>
+// CTA i takes pixel tile i % ntiles (blockDim.x pixels, one per thread) of
+// sample group i / ntiles, samples [g S, min(g S + S, B)).
+template <bool kDamped>
 __global__ void __launch_bounds__(kMaxThreads, kDamped ? kDampedMinCtas : kHarrisMinCtas)
 voigt_tau_kernel(const float* __restrict__ dz,    // (B, T)
                  const float* __restrict__ gain,  // (B, T)
@@ -178,144 +192,99 @@ voigt_tau_kernel(const float* __restrict__ dz,    // (B, T)
                  const float* __restrict__ tmin,  // (T,) mode-1 thresholds
                  const int* __restrict__ mode,    // (T,) 0, 1 or 2
                  float* __restrict__ tau,         // (B, P)
-                 int B, int T, int P, int ntiles, int chunk) {
+                 int B, int T, int P, int S, int ntiles) {
   extern __shared__ float4 smem_raw[];  // 16-byte aligned records
   float4* rec = smem_raw;
   float* den = reinterpret_cast<float*>(rec + 2 * S * T);
-  const int items = (B + S - 1) / S * ntiles;
-  const int first = blockIdx.x * chunk;
-  const int last = min(first + chunk, items);
-  int loaded = -1;
-  for (int item = first; item < last; ++item) {
-    const int g = item / ntiles;
-    if (g != loaded) {  // uniform across the CTA
-      if (loaded >= 0) __syncthreads();  // every thread is done with the old tables
-      load_group<kDamped, S>(rec, den, g * S, B, T, dz, gain, av, dnu, tmin, mode);
-      loaded = g;
-    }
-    const int p = (item - g * ntiles) * blockDim.x + threadIdx.x;
-    if (p >= P) continue;
-    const float c = cw[p];
-    const int b0 = g * S;
-    float* out = tau + static_cast<size_t>(b0) * P + p;
-    if (b0 + S <= B) {
-      float acc[S];
-      tau_samples<kDamped, S, S>(rec, den, T, d0 + p, P, c, acc);
-#pragma unroll
-      for (int s = 0; s < S; ++s) out[static_cast<size_t>(s) * P] = acc[s];
-    } else {  // the last group: its samples below B only
-      for (int s = 0; s < B - b0; ++s) {
-        float acc[1];
-        tau_samples<kDamped, S, 1>(rec + 2 * s, den + s * kTerms, T, d0 + p, P, c, acc);
-        out[static_cast<size_t>(s) * P] = acc[0];
-      }
+  const int g = blockIdx.x / ntiles;
+  const int b0 = g * S;
+  const int n = min(S, B - b0);
+  load_group<kDamped>(rec, den, S, b0, n, T, dz, gain, av, dnu, tmin, mode);
+  const int p = (blockIdx.x - g * ntiles) * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  const float c = cw[p];
+  float* out = tau + static_cast<size_t>(b0) * P + p;
+  // n is uniform across the CTA
+  if constexpr (kDamped) {
+    static_assert(kDampedMaxSamples == 2, "the damped kernel takes 1 or 2 samples");
+    if (n == 2) group_tau<true, 2>(rec, den, S, T, P, d0 + p, c, out);
+    else group_tau<true, 1>(rec, den, S, T, P, d0 + p, c, out);
+  } else {
+    static_assert(kHarrisMaxSamples == 4, "the Harris-only kernel takes 1 to 4 samples");
+    switch (n) {
+      case 4: group_tau<false, 4>(rec, den, S, T, P, d0 + p, c, out); break;
+      case 3: group_tau<false, 3>(rec, den, S, T, P, d0 + p, c, out); break;
+      case 2: group_tau<false, 2>(rec, den, S, T, P, d0 + p, c, out); break;
+      default: group_tau<false, 1>(rec, den, S, T, P, d0 + p, c, out); break;
     }
   }
 }
 
 // The geometry voigt_cuda.tau_geometry gave, checked against what the kernel
 // indexes, so a wrong one is refused instead of reading out of bounds.
-template <int S>
-bool geometry_ok(int B, int T, int P, int threads, int ntiles, int chunk,
-                 int grid, int smem) {
-  const long long items = static_cast<long long>((B + S - 1) / S) * ntiles;
-  return B >= 0 && T >= 0 && P >= 0 && threads >= 32 && threads <= kMaxThreads &&
-         threads % 32 == 0 && ntiles >= 0 &&
-         static_cast<long long>(ntiles) * threads >= P &&
-         (ntiles == 0 || static_cast<long long>(ntiles - 1) * threads < P) &&
-         items < (1LL << 31) && chunk >= 1 && grid >= 0 &&
-         static_cast<long long>(grid) * chunk >= items && smem >= 0 &&
-         static_cast<size_t>(smem) >= group_smem<S>(T);
+template <bool kDamped>
+bool geometry_ok(int B, int T, int P, int S, int threads, int ntiles, int grid,
+                 int smem) {
+  return B >= 1 && T >= 0 && P >= 1 && S >= 1 && S <= max_samples<kDamped>() &&
+         threads >= 32 && threads <= kMaxThreads && threads % 32 == 0 &&
+         ntiles == (P + threads - 1) / threads &&
+         grid == static_cast<long long>((B + S - 1) / S) * ntiles && smem >= 0 &&
+         static_cast<size_t>(smem) >= group_smem(T, S);
 }
 
-template <bool kDamped, int S>
+template <bool kDamped>
+cudaError_t allow_smem(int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(voigt_tau_kernel<kDamped>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <bool kDamped>
 cudaError_t launch(const float* dz, const float* gain, const float* av,
                    const float* dnu, const float* d0, const float* cw,
                    const float* tmin, const int* mode, float* tau, int B, int T,
-                   int P, int threads, int ntiles, int chunk, int grid, int smem,
+                   int P, int S, int threads, int ntiles, int grid, int smem,
                    void* stream) {
-  if (!geometry_ok<S>(B, T, P, threads, ntiles, chunk, grid, smem))
+  if (!geometry_ok<kDamped>(B, T, P, S, threads, ntiles, grid, smem))
     return cudaErrorInvalidValue;
-  if (grid == 0) return cudaSuccess;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        voigt_tau_kernel<kDamped, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  voigt_tau_kernel<kDamped, S><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      dz, gain, av, dnu, d0, cw, tmin, mode, tau, B, T, P, ntiles, chunk);
+  const cudaError_t e = allow_smem<kDamped>(smem);
+  if (e != cudaSuccess) return e;
+  voigt_tau_kernel<kDamped><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      dz, gain, av, dnu, d0, cw, tmin, mode, tau, B, T, P, S, ntiles);
   return cudaGetLastError();
 }
 
-template <bool kDamped, int S>
+template <bool kDamped>
 cudaError_t occupancy(int threads, int smem, int* ctas_per_sm) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        voigt_tau_kernel<kDamped, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = allow_smem<kDamped>(smem);
+  if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, voigt_tau_kernel<kDamped, S>, threads, static_cast<size_t>(smem));
-}
-
-using LaunchFn = cudaError_t (*)(const float*, const float*, const float*,
-                                 const float*, const float*, const float*,
-                                 const float*, const int*, float*, int, int, int,
-                                 int, int, int, int, int, void*);
-using OccupancyFn = cudaError_t (*)(int, int, int*);
-
-struct Instantiation {
-  bool damped;
-  int samples;
-  LaunchFn launch;
-  OccupancyFn occupancy;
-};
-
-// The two instantiations the wrapper runs, and, in a build with
-// -DMCALF_TAU_ALL_SAMPLES (tools/tau_steps.py), the other sample counts the
-// design was timed against.
-const Instantiation kInstantiations[] = {
-    {false, kHarrisSamples, launch<false, kHarrisSamples>, occupancy<false, kHarrisSamples>},
-    {true, kDampedSamples, launch<true, kDampedSamples>, occupancy<true, kDampedSamples>},
-#ifdef MCALF_TAU_ALL_SAMPLES
-    {false, 1, launch<false, 1>, occupancy<false, 1>},
-    {false, 2, launch<false, 2>, occupancy<false, 2>},
-    {true, 1, launch<true, 1>, occupancy<true, 1>},
-    {true, 4, launch<true, 4>, occupancy<true, 4>},
-#endif
-};
-
-const Instantiation* find(int damped, int samples) {
-  for (const Instantiation& k : kInstantiations)
-    if (k.damped == (damped != 0) && k.samples == samples) return &k;
-  return nullptr;
+      ctas_per_sm, voigt_tau_kernel<kDamped>, threads, static_cast<size_t>(smem));
 }
 
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream) without synchronising.
 // `damped`: some transition is in mode 2 (the host knows it from the mode
-// table, voigt_cuda._any_damped); `samples`, `threads`, `ntiles`, `chunk`,
-// `grid` and `smem` are voigt_cuda.tau_geometry's.  Returns the first CUDA
-// error: a refused launch never runs, and only this check reports it.
+// table, voigt_cuda._any_damped); `samples` (S), `threads`, `ntiles`, `grid`
+// and `smem` are voigt_cuda.tau_geometry's.  Returns the first CUDA error: a
+// refused launch never runs, and only this check reports it.
 extern "C" int mcalf_voigt_tau_groups(const float* dz, const float* gain,
                                       const float* av, const float* dnu,
                                       const float* d0, const float* cw,
                                       const float* tmin, const int* mode,
                                       float* tau, int B, int T, int P, int damped,
                                       int samples, int threads, int ntiles,
-                                      int chunk, int grid, int smem, void* stream) {
-  const Instantiation* k = find(damped, samples);
-  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(k->launch(dz, gain, av, dnu, d0, cw, tmin, mode, tau, B,
-                                    T, P, threads, ntiles, chunk, grid, smem, stream));
+                                      int grid, int smem, void* stream) {
+  return static_cast<int>((damped ? launch<true> : launch<false>)(
+      dz, gain, av, dnu, d0, cw, tmin, mode, tau, B, T, P, samples, threads,
+      ntiles, grid, smem, stream));
 }
 
 // CTAs of `threads` threads with `smem` bytes of dynamic shared memory of the
-// instantiation for (damped, samples) resident on one SM.
-extern "C" int mcalf_voigt_tau_occupancy(int damped, int samples, int threads,
-                                         int smem, int* ctas_per_sm) {
-  const Instantiation* k = find(damped, samples);
-  if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(k->occupancy(threads, smem, ctas_per_sm));
+// instantiation for `damped` resident on one SM.
+extern "C" int mcalf_voigt_tau_occupancy(int damped, int threads, int smem,
+                                         int* ctas_per_sm) {
+  return static_cast<int>(
+      (damped ? occupancy<true> : occupancy<false>)(threads, smem, ctas_per_sm));
 }

@@ -45,7 +45,8 @@ class BuiltLibrary(NamedTuple):
     path: Path
     #: wall seconds nvcc took in this process (0.0 when loaded from cache)
     build_seconds: float
-    #: nvcc/ptxas output (registers, shared memory, spills per kernel)
+    #: nvcc/ptxas output (registers, shared memory, spills per kernel), read
+    #: back from the build directory when the library was built before
     log: str
 
 
@@ -114,6 +115,8 @@ def load() -> BuiltLibrary:
     out_dir = BUILD_ROOT / f"kernels-{key.hexdigest()[:16]}"
     lib_path = out_dir / "libmcalf_kernels.so"
     seconds, log = 0.0, ""
+    if lib_path.exists() and (out_dir / "build.log").exists():
+        log = (out_dir / "build.log").read_text()
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "mcalf_coefs.h").write_text(header)

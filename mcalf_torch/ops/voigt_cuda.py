@@ -25,8 +25,8 @@ Each wrapper dispatches on where its tensors live: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise.  ``launches`` and
 ``tau_launches`` count kernel launches.  The kernels' design and what
 bounds them are noted in their sources; their launch geometries (the fused
-kernel's thread block cluster per sample, the tau kernel's sample groups
-and pixel tiles dealt out in one wave) are :func:`fused_geometry`'s and
+kernel's thread block cluster per sample, the tau kernel's CTA per sample
+group and pixel tile) are :func:`fused_geometry`'s and
 :func:`tau_geometry`'s, here, where the CPU tests reach them.
 """
 
@@ -78,19 +78,19 @@ MAX_CLUSTER = 8
 _LINE_WORDS = 8 + N_TERMS
 #: threads per CTA of the tau kernel at most (csrc/voigt_tau.cu kMaxThreads)
 TAU_MAX_THREADS = 256
-#: samples per thread of the tau kernel's Harris-only and damped
-#: instantiations (csrc/voigt_tau.cu kHarrisSamples, kDampedSamples)
-TAU_SAMPLES = {False: 4, True: 2}
-#: CTAs of TAU_MAX_THREADS per SM the tau kernel's launch bounds allow
-#: (csrc/voigt_tau.cu kHarrisMinCtas, kDampedMinCtas)
-TAU_MIN_CTAS = {False: 4, True: 3}
-#: threads per CTA (pixels per tile) of the tau kernel's geometry
-TAU_THREADS = 128
+#: samples per group of the tau kernel's Harris-only and damped
+#: instantiations at most (csrc/voigt_tau.cu kHarrisMaxSamples,
+#: kDampedMaxSamples)
+TAU_MAX_SAMPLES = {False: 4, True: 2}
+#: threads per CTA (pixels per tile) of the tau kernel's Harris-only and
+#: damped instantiations
+TAU_THREADS = {False: 128, True: 256}
+#: warps of work per SM below which the tau kernel's geometry takes fewer
+#: samples per group (tools/tau_steps.py: the damped kernel's tiles differ
+#: more in cost, so it wants more of them)
+TAU_WARPS_PER_SM = {False: 24, True: 48}
 #: streaming multiprocessors of an H100 SXM
 H100_SMS = 132
-#: Hopper: registers and shared memory (bytes, 1 KB of it reserved per CTA)
-#: of one SM, threads and CTAs resident on one SM at most
-_SM_REGISTERS, _SM_SMEM, _SM_THREADS, _SM_CTAS = 65536, 233472, 2048, 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,9 +113,9 @@ def _tau_fn():
 
     fn = load().lib.mcalf_voigt_tau_groups
     fn.restype = ctypes.c_int
-    # 9 pointers, B, T, P, damped, samples, threads, ntiles, chunk, grid,
-    # smem, stream
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    # 9 pointers, B, T, P, damped, samples, threads, ntiles, grid, smem,
+    # stream
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     return fn
 
 
@@ -189,102 +189,70 @@ def fused_occupancy(T: int, P: int, half: int, damped: bool) -> Tuple[int, int]:
 
 
 class TauGeometry(NamedTuple):
-    """How :func:`voigt_tau` deals its work to CTAs (``csrc/voigt_tau.cu``):
-    work item i is pixel tile i % ntiles of sample group i // ntiles, and
-    CTA c takes items [c*chunk, (c+1)*chunk)."""
+    """How :func:`voigt_tau` lays its work over CTAs (``csrc/voigt_tau.cu``):
+    CTA i takes pixel tile i % ntiles of sample group i // ntiles."""
 
-    #: threads per CTA, one pixel each per work item
+    #: threads per CTA, one pixel each
     threads: int
-    #: samples per thread (a sample group); the last group may be partial
+    #: samples per group (S), each thread's independent sums; the last
+    #: group holds the B % S samples left over, if any
     samples: int
     #: pixels per tile (= threads)
     tile: int
     #: pixel tiles per sample group
     ntiles: int
-    #: consecutive work items per CTA
-    chunk: int
-    #: CTAs launched
+    #: CTAs launched, one per (sample group, pixel tile)
     grid: int
     #: dynamic shared memory of one CTA in bytes (one group's line tables)
     smem: int
 
-    def items(self, cta: int, B: int, P: int):
-        """The (samples, pixels) ranges of CTA ``cta``'s work items."""
-        S, n = self.samples, -(-B // self.samples) * self.ntiles
-        out = []
-        for i in range(cta * self.chunk, min((cta + 1) * self.chunk, n)):
-            g, j = divmod(i, self.ntiles)
-            out.append((range(g * S, min(g * S + S, B)),
-                        range(j * self.tile, min(j * self.tile + self.tile, P))))
-        return out
 
-
-def _tau_smem(T: int, samples: int) -> int:
-    """Bytes of shared memory of one sample group's line tables; raises
-    ``ValueError`` when they do not fit a Hopper CTA."""
+def _tau_layout(B: int, T: int, P: int, samples: int, threads: int) -> TauGeometry:
+    """The geometry for groups of `samples` samples and tiles of `threads`
+    pixels.  Raises ``ValueError`` when a group's line tables do not fit a
+    CTA's shared memory."""
     smem = 4 * _LINE_WORDS * T * samples
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"{T} transitions of {samples} samples need {smem} bytes of shared "
             f"memory per CTA, over the {_SMEM_LIMIT} a Hopper CTA can hold"
         )
-    return smem
-
-
-def _tau_resident(threads: int, damped: bool, smem: int) -> int:
-    """CTAs resident per SM as the launch bounds' register cap gives them:
-    a lower bound of what the occupancy API reports (the kernel may use
-    fewer registers than the cap)."""
-    per_thread = _SM_REGISTERS // (TAU_MAX_THREADS * TAU_MIN_CTAS[damped]) // 8 * 8
-    return max(1, min(_SM_CTAS, _SM_THREADS // threads,
-                      _SM_REGISTERS // (per_thread * threads),
-                      _SM_SMEM // (smem + 1024)))
-
-
-def _tau_layout(B, T, P, samples, threads, slots) -> TauGeometry:
-    """The geometry for S = samples and a tile of `threads` pixels, the work
-    items dealt in runs of equal length to at most `slots` CTAs (every item
-    its own CTA when slots is None)."""
-    smem = _tau_smem(T, samples)
     ntiles = -(-P // threads)
-    items = -(-B // samples) * ntiles
-    if items >= 2**31:
-        raise ValueError(f"B={B}, P={P}: {items} work items, over 2**31 - 1")
-    chunk = max(1, -(-items // slots)) if slots else 1
-    return TauGeometry(threads, samples, threads, ntiles, chunk, -(-items // chunk), smem)
-
-
-def tau_geometry(B: int, T: int, P: int, damped: bool, sms: int = H100_SMS,
-                 resident: int | None = None) -> TauGeometry:
-    """The tau kernel's launch geometry for B samples, T transitions and P
-    pixels; ``damped`` picks the instantiation (and its S).
-
-    Tiles of :data:`TAU_THREADS` pixels, groups of ``TAU_SAMPLES[damped]``
-    samples, the work items dealt in runs of equal length to at most ``sms``
-    x ``resident`` CTAs (resident CTAs per SM: the card's own count from
-    :func:`tau_occupancy`, by default what the register cap allows), so the
-    grid is one wave.  Raises ``ValueError`` when a group's line tables do
-    not fit a CTA's shared memory."""
-    S = TAU_SAMPLES[damped]
-    if resident is None:
-        resident = _tau_resident(TAU_THREADS, damped, _tau_smem(T, S))
-    return _tau_layout(B, T, P, S, TAU_THREADS, sms * resident)
+    grid = -(-B // samples) * ntiles
+    if grid >= 2**31:
+        raise ValueError(f"B={B}, P={P}: {grid} CTAs, over 2**31 - 1")
+    return TauGeometry(threads, samples, threads, ntiles, grid, smem)
 
 
 @functools.lru_cache(maxsize=None)
-def tau_occupancy(T: int, damped: bool, threads: int = TAU_THREADS,
-                  samples: int | None = None) -> int:
-    """CTAs of the tau kernel resident per SM at T transitions, as the CUDA
-    runtime computes them; ``damped`` picks the instantiation, ``samples``
-    its S (the instantiation's own by default)."""
+def tau_geometry(B: int, T: int, P: int, damped: bool, sms: int = H100_SMS) -> TauGeometry:
+    """The tau kernel's launch geometry for B samples, T transitions and P
+    pixels on a card of ``sms`` SMs; ``damped`` picks the instantiation.
+
+    Tiles of ``TAU_THREADS[damped]`` pixels and groups of S samples: the
+    largest S of 4, 2, 1 up to ``TAU_MAX_SAMPLES[damped]`` whose work items
+    still give every SM at least ``TAU_WARPS_PER_SM[damped]`` warps (S = 1
+    when none does), since larger groups share each d0 load and table load
+    among more samples but leave fewer CTAs to hide latency and even out the
+    cost of the tiles.  Raises ``ValueError`` when a group's line tables do
+    not fit a CTA's shared memory."""
+    threads = TAU_THREADS[damped]
+    warps = -(-P // threads) * (threads // 32)
+    S = next((S for S in (4, 2) if S <= TAU_MAX_SAMPLES[damped]
+              and -(-B // S) * warps >= TAU_WARPS_PER_SM[damped] * sms), 1)
+    return _tau_layout(B, T, P, S, threads)
+
+
+def tau_occupancy(damped: bool, geo: TauGeometry) -> int:
+    """CTAs of the tau kernel resident per SM at this geometry, as the CUDA
+    runtime computes them; ``damped`` picks the instantiation."""
     from mcalf_torch.ops._build import load
 
-    S = TAU_SAMPLES[damped] if samples is None else samples
     ctas = ctypes.c_int(0)
     fn = load().lib.mcalf_voigt_tau_occupancy
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    err = fn(int(damped), S, threads, _tau_smem(T, S), ctypes.addressof(ctas))
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    err = fn(int(damped), geo.threads, geo.smem, ctypes.addressof(ctas))
     if err != 0:
         raise RuntimeError(f"tau kernel occupancy query failed: CUDA error {err}")
     return ctas.value
@@ -396,8 +364,7 @@ def voigt_tau(dz, gain, av, dnu, d0, cw, tmin, modes) -> torch.Tensor:
     _check_cuda_inputs(B, T, P, named, modes)
     damped = _any_damped(modes)
     index = dz.device.index if dz.device.index is not None else torch.cuda.current_device()
-    geo = tau_geometry(B, T, P, damped, sms=_sm_count(index),
-                       resident=tau_occupancy(T, damped))
+    geo = tau_geometry(B, T, P, damped, sms=_sm_count(index))
     tau = torch.empty((B, P), dtype=torch.float32, device=dz.device)
     if B == 0 or P == 0:
         return tau
@@ -408,15 +375,15 @@ def voigt_tau(dz, gain, av, dnu, d0, cw, tmin, modes) -> torch.Tensor:
 
 
 def _launch_tau(named, modes, tau, damped: bool, geo: TauGeometry) -> None:
-    """One launch of the tau kernel's instantiation for (damped,
-    geo.samples) at this geometry, on the current stream."""
+    """One launch of the tau kernel's instantiation for `damped` at this
+    geometry, on the current stream."""
     B, P = tau.shape
     T = modes.shape[0]
     stream = torch.cuda.current_stream(tau.device).cuda_stream
     err = _tau_fn()(
         *(x.data_ptr() for _, x in named), modes.data_ptr(), tau.data_ptr(),
-        B, T, P, int(damped), geo.samples, geo.threads, geo.ntiles, geo.chunk,
-        geo.grid, geo.smem, stream,
+        B, T, P, int(damped), geo.samples, geo.threads, geo.ntiles, geo.grid,
+        geo.smem, stream,
     )
     if err != 0:
         raise RuntimeError(f"voigt_tau kernel launch failed: CUDA error {err}")

@@ -155,8 +155,10 @@ def test_damped_kernel_matches_plain(damped, B):
     np.testing.assert_allclose(ll[0][fin], ll[1][fin], rtol=1e-5, atol=0.05)
 
 
-@pytest.mark.parametrize("B", (100, 13))
+@pytest.mark.parametrize("B", (1, 13, 100, 1000, 1003))
 def test_tau_kernel_matches_plain(any_fwd, B):
+    """Groups of 1, 2 or 4 samples by the geometry's choice; B = 13 and 1003
+    leave a partial last group where S > 1."""
     args = _args(any_fwd, B, seed=2 * B)
     targs = args[:6] + args[11:]
     before = voigt_cuda.tau_launches
@@ -166,6 +168,54 @@ def test_tau_kernel_matches_plain(any_fwd, B):
     torch.cuda.synchronize()
     err = ((k - q).abs() / (q.abs() + 1e-3)).max().item()
     assert err < 3e-5, err
+
+
+def test_tau_kernel_beyond_the_grid_dimension_limit():
+    """B = 65,537 samples, more than one grid dimension's 65,535 blocks:
+    the first and last rows against the plain version."""
+    fwd = _forward("narrow")
+    B = 65537
+    targs = (lambda a: a[:6] + a[11:])(_args(fwd, B, seed=6))
+    k = voigt_cuda.voigt_tau(*targs)
+    rows = torch.cat([torch.arange(0, 64), torch.arange(B - 192, B)]).cuda()
+    q = voigt_cuda.voigt_tau_plain(*(a[rows] for a in targs[:4]), *targs[4:])
+    torch.cuda.synchronize()
+    err = ((k[rows] - q).abs() / (q.abs() + 1e-3)).max().item()
+    assert err < 3e-5, err
+
+
+@pytest.mark.parametrize("B", (100, 1003))
+def test_tau_repeated_launches_are_bit_identical(any_fwd, B):
+    targs = (lambda a: a[:6] + a[11:])(_args(any_fwd, B, seed=8))
+    first = voigt_cuda.voigt_tau(*targs)
+    for _ in range(3):
+        assert torch.equal(voigt_cuda.voigt_tau(*targs), first)
+
+
+@pytest.mark.parametrize("name,damped", [("flagship", False), ("narrow", True), ("mixed", True)])
+def test_tau_instantiation_follows_the_mode_table(name, damped, monkeypatch):
+    """The Harris-only kernel for the flagship, the damped one for a model
+    with a strongly damped transition, at the geometry tau_geometry gives."""
+    fwd = _forward(name)
+    seen = []
+    launch = voigt_cuda._launch_tau
+    monkeypatch.setattr(voigt_cuda, "_launch_tau",
+                        lambda *a: seen.append(a[3:]) or launch(*a))
+    targs = (lambda a: a[:6] + a[11:])(_args(fwd, 100, seed=4))
+    voigt_cuda.voigt_tau(*targs)
+    s = fwd.static
+    assert seen == [(damped, voigt_cuda.tau_geometry(100, s.ntrans, s.npix, damped))]
+
+
+@pytest.mark.parametrize("B", (100, 200, 1000))
+def test_tau_occupancy(any_fwd, B):
+    """At least the one-sample kernel's 2 CTAs of 256 threads (16 warps)
+    stay resident per SM (the CUDA occupancy API)."""
+    s = any_fwd.static
+    damped = voigt_cuda._any_damped(any_fwd.modes)
+    g = voigt_cuda.tau_geometry(B, s.ntrans, s.npix, damped)
+    ctas = voigt_cuda.tau_occupancy(damped, g)
+    assert ctas >= 2 and ctas * g.threads // 32 >= 16, ctas
 
 
 def test_entry_points_launch_the_tau_kernel(any_fwd):
