@@ -56,7 +56,22 @@ Phases, each printing lines tagged with its number:
    quadrature evidence of testdata/civ_mock_spec.txt, 4985.51, within 2x the
    mean logzerr; then with brange = 3, 40 (every evaluation in the full
    hjert) against 4985.30 = 4985.51 + ln(30/37) (the b prior's density
-   changes from 1/30 to 1/37 where the posterior lies).
+   changes from 1/30 to 1/37 where the posterior lies);
+9. the runner's other fits through ``mcalf_torch.cli.main``, each a failure
+   if it raises, if a file is missing or malformed, or if fewer fused-kernel
+   launches than likelihood batches were counted.  At full width (copies of
+   testdata/fit.cfg as in phase 6): (a) ``seeds = 43,44``, per-seed and
+   merged files; (b) kill and resume: a run with ``[run] checkpoint`` to the
+   end (42 outer steps: chunk boundaries at 8 and 40), the same run stopped
+   by an exception from the chunk callback after its second checkpoint and
+   started again from the files, ``.stats`` and ``_equal_weights.txt`` byte
+   for byte the uninterrupted run's, then seed 43's checkpoint refused for
+   seed 44.  At the 1-comp CIV anchor (ndim 4, nlive 200, to convergence):
+   (c) ``solver = dypolychord`` with a ``[pc_settings]`` section (dynamic,
+   implicit resume directory, ``_dead-birth.txt`` with base and boost rows),
+   merged logZ within 2x its error, or 0.3, of 4985.51 and a posterior ESS
+   above the base run's; (d) ``auto_repeats`` from ``num_repeats = 2``; (e)
+   ``ncomp = 1, 2`` with ``ncomp_grid``; (f) two spectra.
 
 Then one JSON line with the kernels' launch counts, errors, device and
 call times and bounds (at the narrow flagship, B=100; the tau kernel's at
@@ -85,6 +100,9 @@ QUADRATURE_LOGZ = 4985.51  # 1-comp CIV on testdata/civ_mock_spec.txt
 NARROW_LOGZ = QUADRATURE_LOGZ + math.log(30.0 / 37.0)  # brange 3, 40
 SLICE_MAX_SAMPLES = 1000
 SLICE_NUM_REPEATS = 544
+#: phase 9's kill-and-resume run: 42 outer steps of 100 deletions, so that two
+#: chunk boundaries (8 and 40 outer steps) lie before its end
+RESUME_MAX_SAMPLES = 4200
 
 #: the H100 SXM's published peaks (NVIDIA data sheet, at 700 W): float32
 #: outside the tensor cores, and device memory
@@ -604,61 +622,102 @@ def phase_timing(smi: str) -> dict:
     return out
 
 
-def _write_cfg(path: Path, outdir: Path, brange=None) -> None:
+def _write_cfg(path: Path, outdir: Path, brange=None, run="",
+               max_samples=SLICE_MAX_SAMPLES) -> None:
+    """A copy of testdata/fit.cfg that writes under ``outdir``, its depth cut
+    by ``max_samples``; ``run`` holds further lines of its [run] section."""
     text = (TESTDATA / "fit.cfg").read_text()
     text = text.replace("datadir = testdata/", f"datadir = {TESTDATA}/")
     text = text.replace("outdir = testdata/output/", f"outdir = {outdir}/")
-    text = text.replace("doplot = True", "doplot = False")
+    text = text.replace("doplot = True", "doplot = False\n" + run)
     if brange is not None:
         text = text.replace("brange = 10.0, 40.0", f"brange = {brange}")
     text += (
         "\n[ns_settings]\n"
-        f"max_samples = {SLICE_MAX_SAMPLES}\n"
+        f"max_samples = {max_samples}\n"
         f"num_repeats = {SLICE_NUM_REPEATS}\n"
     )
     path.write_text(text)
 
 
-def phase_slice(tmp: Path, name: str, brange=None) -> dict:
+def _drive_cli(cfg: Path, *argv) -> dict:
+    """``mcalf_torch.cli.main`` on ``cfg`` with the fused kernel's launch
+    count set to 0 just before and read just after.  Beside it: what every
+    ``runner.run_fit`` and ``runner.dynamic_sample`` call returned, and the
+    likelihood batches (calls of ``TorchForward.loglike_cube``) and their
+    rows.  An exception of the fit passes through, the counts up to it in
+    its ``drive`` attribute."""
     from mcalf_torch import cli, runner
+    from mcalf_torch.models.torch_model import TorchForward
     from mcalf_torch.ops import voigt_cuda
 
-    out = tmp / name
-    out.mkdir()
-    cfg = out / "fit.cfg"
-    _write_cfg(cfg, out, brange)
-    results = []
-    run_fit = runner.run_fit
+    out = {"fits": [], "dynamic": [], "batches": 0, "rows": 0}
+    run_fit, dynamic_sample = runner.run_fit, runner.dynamic_sample
+    loglike_cube = TorchForward.loglike_cube
 
-    def recording_run_fit(*a, **k):
-        results.append(run_fit(*a, **k))
-        return results[-1]
+    def recording(fn, into):
+        def wrapped(*a, **k):
+            into.append(fn(*a, **k))
+            return into[-1]
 
-    runner.run_fit = recording_run_fit
+        return wrapped
+
+    def counted_loglike_cube(self, u):
+        out["batches"] += 1
+        out["rows"] += u.shape[:-1].numel()
+        return loglike_cube(self, u)
+
+    runner.run_fit = recording(run_fit, out["fits"])
+    runner.dynamic_sample = recording(dynamic_sample, out["dynamic"])
+    TorchForward.loglike_cube = counted_loglike_cube
     try:
         voigt_cuda.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rc = cli.main([str(cfg)])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = voigt_cuda.launches
+        try:
+            out["rc"] = cli.main([str(cfg), *argv])
+        except Exception as e:
+            e.drive = out
+            raise
+        finally:
+            torch.cuda.synchronize()
+            out["wall"] = time.perf_counter() - t0
+            out["launches"] = voigt_cuda.launches
     finally:
-        runner.run_fit = run_fit
-    if rc != 0 or len(results) != 1:
-        raise AssertionError(f"cli.main returned {rc}, fits run: {len(results)}")
-    res, base = results[0]
-    stats = Path(base + ".stats").read_text().splitlines()
-    head = stats[0].split()
-    if head[0] != "log(Z)" or not math.isfinite(float(head[2])):
-        raise AssertionError(f"bad .stats: {stats}")
-    logz = float(head[2])
-    eq = np.loadtxt(base + "_equal_weights.txt", ndmin=2)
-    if eq.shape[1] != 2 + 34 or not np.all(np.isfinite(eq)):
-        raise AssertionError(f"bad _equal_weights.txt shape {eq.shape}")
+        runner.run_fit, runner.dynamic_sample = run_fit, dynamic_sample
+        TorchForward.loglike_cube = loglike_cube
+    return out
+
+
+def _read_chain_pair(base: str, ncols: int):
+    """(logZ, error, rows) of a `.stats` + `_equal_weights.txt` pair, read
+    through the port's analysis module; raises on a malformed file."""
+    from mcalf_torch.analysis import analyze_chains
+
+    logz, err, lhood, post = analyze_chains(base, return_sorted=False)
+    if not (math.isfinite(logz) and math.isfinite(err) and err >= 0):
+        raise AssertionError(f"bad {base}.stats: logZ {logz} +/- {err}")
+    if post.shape[1] != ncols - 2 or len(post) == 0 or not (
+        np.all(np.isfinite(post)) and np.all(np.isfinite(lhood))
+    ):
+        raise AssertionError(f"bad {base}_equal_weights.txt: shape {post.shape}")
+    return logz, err, post
+
+
+def phase_slice(tmp: Path, name: str, brange=None) -> dict:
+    out = tmp / name
+    out.mkdir()
+    cfg = out / "fit.cfg"
+    _write_cfg(cfg, out, brange)
+    run = _drive_cli(cfg)
+    launches, wall = run["launches"], run["wall"]
+    if run["rc"] != 0 or len(run["fits"]) != 1:
+        raise AssertionError(f"cli.main returned {run['rc']}, fits run: {len(run['fits'])}")
+    res, base = run["fits"][0]
+    logz, _, posterior = _read_chain_pair(base, 2 + 34)
     nlive, B = 200, 100
     batches = 1 + (res.n_like - nlive) // B
-    if launches < batches:
+    if launches < batches or launches < run["batches"]:
         raise AssertionError(f"{launches} kernel launches < {batches} batches")
     print(
         f"[6 slice] {name} ndim=34 nlive=200 B=100 num_repeats="
@@ -667,10 +726,10 @@ def phase_slice(tmp: Path, name: str, brange=None) -> dict:
         f"{res.n_like / wall:.4g} evals/s, logZ={logz:.3f} "
         f"(+/- {float(res.logzerr):.3f}, unconverged by design), "
         f"kernel launches {launches} >= batches {batches}, "
-        f"equal-weight rows {eq.shape[0]}"
+        f"equal-weight rows {posterior.shape[0]}"
     )
     return {"launches": launches, "wall": wall, "n_like": res.n_like,
-            "posterior": eq[:, 2:]}
+            "posterior": posterior}
 
 
 def phase_tau_path(posterior: np.ndarray) -> dict:
@@ -755,6 +814,285 @@ def phase_anchor(brange, want: float, tag: str) -> None:
         raise AssertionError(f"{tag} anchor outside 2x mean logzerr")
 
 
+ANCHOR_CFG = """
+[input]
+specfile = {specfile}
+wavefit = 6180,6220
+linelist = CIV 1548, CIV 1550
+coldef = Wave, Flux, Err
+solver = {solver}
+specres = 8.0
+
+[pathing]
+datadir = {testdata}/
+outdir = {out}/
+chainfmt = pc_fits_{{0}}
+
+[components]
+ncomp = {ncomp}
+contval = 1
+Nrange = 12.0,14.5
+brange = 10.0, 40.0
+zrange = 2.99, 3.01
+
+[run]
+dofit = True
+doplot = False
+{run}
+
+{sections}
+"""
+ANCHOR_NLIVE = 200
+ANCHOR_MAX_SAMPLES = 12000
+
+
+def _anchor_cfg(out: Path, *, solver="polychord", ncomp="1,1", run="", ns="",
+                pc_settings=False, specfile="civ_mock_spec.txt") -> Path:
+    """The 1-comp CIV anchor of phase 8 (ndim 4, nlive 200, max_samples
+    12000) as a config file that writes under ``out``; nlive in a
+    ``[pc_settings]`` section when asked, ``ns`` further ``[ns_settings]``
+    lines."""
+    nlive = f"nlive = {ANCHOR_NLIVE}\n"
+    sections = (
+        ("[pc_settings]\n" + nlive + "\n[ns_settings]\n" if pc_settings
+         else "[ns_settings]\n" + nlive)
+        + f"max_samples = {ANCHOR_MAX_SAMPLES}\n" + ns
+    )
+    out.mkdir()
+    cfg = out / "fit.cfg"
+    cfg.write_text(ANCHOR_CFG.format(
+        specfile=specfile, solver=solver, testdata=TESTDATA, out=out, ncomp=ncomp,
+        run=run, sections=sections,
+    ))
+    return cfg
+
+
+def _check_launches(tag: str, run: dict) -> None:
+    if run.get("rc", 0) != 0:
+        raise AssertionError(f"{tag}: cli.main returned {run['rc']}")
+    if run["batches"] == 0 or run["launches"] < run["batches"]:
+        raise AssertionError(f"{tag}: {run['launches']} fused-kernel launches < "
+                             f"{run['batches']} likelihood batches")
+
+
+def _near_quadrature(tag: str, logz: float, err: float) -> str:
+    tol = max(2.0 * err, 0.3)
+    if not abs(logz - QUADRATURE_LOGZ) < tol:
+        raise AssertionError(f"{tag}: merged logZ {logz:.3f} +/- {err:.3f} is not within "
+                             f"{tol:.3f} of {QUADRATURE_LOGZ}")
+    return f"|logZ - {QUADRATURE_LOGZ}| {abs(logz - QUADRATURE_LOGZ):.3f} < {tol:.3f}"
+
+
+def _stats_lines(base: str):
+    return Path(base + ".stats").read_text().splitlines()
+
+
+def _deadbirth_logz(dead: np.ndarray) -> float:
+    """The evidence of a `_dead-birth.txt` from its (logL, birth logL) pairs
+    alone, the live count at each death recovered from the birth contours
+    (anesthetic's reconstruction)."""
+    order = np.argsort(dead[:, -2], kind="stable")
+    logl, birth = dead[order, -2], dead[order, -1]
+    born = np.searchsorted(np.sort(birth), logl, side="left")
+    nlive = np.maximum(born - np.searchsorted(logl, logl, side="left"), 1).astype(np.float64)
+    logx = np.cumsum(np.log(nlive) - np.log(nlive + 1.0))
+    a = np.concatenate([[0.0], logx[:-1]]) - np.log(nlive + 1.0) + logl
+    return float(a.max() + np.log(np.sum(np.exp(a - a.max()))))
+
+
+def phase_variants(tmp: Path, smi: str) -> int:
+    """Phase 9: the runner's other fits through the CLI.  Returns the fused
+    kernel's launches over all of them."""
+    from mcalf_torch import runner
+    from mcalf_torch.sampler import posterior_ess
+
+    total = 0
+
+    def report(tag, run, text):
+        nonlocal total
+        _check_launches(tag, run)
+        total += run["launches"]
+        print(f"[9 {tag}] {text}; wall {run['wall']:.2f} s, fused-kernel launches "
+              f"{run['launches']} >= likelihood batches {run['batches']} "
+              f"({run['rows']} evaluations)  [{smi}]")
+
+    # (a) a seed ensemble at full width, merged by birth contours
+    out = tmp / "seeds"
+    out.mkdir()
+    _write_cfg(out / "fit.cfg", out, run="seeds = 43,44")
+    run = _drive_cli(out / "fit.cfg")
+    merged, base = run["fits"][0]
+    members = [_read_chain_pair(f"{base}_s{s}", 2 + 34) for s in (43, 44)]
+    logz, err, post = _read_chain_pair(base, 2 + 34)
+    stats = _stats_lines(base)
+    if not (len(stats) == 4 and all(stats[1 + i].startswith(f"# seed {s}: logZ = ")
+                                    and "insertion-rank KS p = " in stats[1 + i]
+                                    for i, s in enumerate((43, 44)))
+            and stats[3].startswith("# merged 2 seeds [43, 44] by birth contours")):
+        raise AssertionError(f"seeds: bad merged .stats: {stats}")
+    # solver = jaxns resamples every posterior to max_samples rows
+    if (logz, err) != (merged.logz, merged.logzerr) or any(
+            len(p) != SLICE_MAX_SAMPLES for p in (post, members[0][2], members[1][2])):
+        raise AssertionError("seeds: the merged files are not the merged run's")
+    report("a seeds", run,
+           f"ndim=34 nlive=200 B=100 num_repeats={SLICE_NUM_REPEATS} max_samples="
+           f"{SLICE_MAX_SAMPLES}, seeds 43 and 44: logZ {members[0][0]:.3f} and "
+           f"{members[1][0]:.3f}, merged {logz:.3f} +/- {err:.3f} (unconverged by design), "
+           f"merged equal-weight rows {len(post)}")
+
+    # (b) kill and resume at full width, byte for byte
+    ref, cut = tmp / "resume_ref", tmp / "resume_cut"
+    for d in (ref, cut):
+        d.mkdir()
+        _write_cfg(d / "fit.cfg", d, max_samples=RESUME_MAX_SAMPLES,
+                   run=f"seed = 43\ncheckpoint = {d / 'ckpt'}")
+    run = _drive_cli(ref / "fit.cfg")
+    res, ref_base = run["fits"][0]
+    logz, err, _ = _read_chain_pair(ref_base, 2 + 34)
+    kept = sorted(p.name for p in (ref / "ckpt").glob("ns_state_*.npz"))
+    if kept != ["ns_state_000008.npz", "ns_state_000040.npz", "ns_state_000042.npz"]:
+        raise AssertionError(f"resume: checkpoints of the uninterrupted run: {kept}")
+    report("b uninterrupted", run,
+           f"max_samples={RESUME_MAX_SAMPLES} with [run] checkpoint: {res.n_iter} steps, "
+           f"n_like={res.n_like}, logZ {logz:.3f} +/- {err:.3f}, checkpoints at steps 8, 40, 42")
+
+    class Killed(RuntimeError):
+        pass
+
+    save_state, saves = runner.save_state, []
+
+    def dying_save_state(*a, **k):
+        save_state(*a, **k)
+        saves.append(a[0])
+        if len(saves) == 2:
+            raise Killed("stopped after the second checkpoint")
+
+    runner.save_state = dying_save_state
+    try:
+        _drive_cli(cut / "fit.cfg")
+    except Killed as e:
+        killed = e.drive
+    else:
+        raise AssertionError("resume: the fit outlived its kill")
+    finally:
+        runner.save_state = save_state
+    cut_base = str(cut / "fits" / "pc_fits_0")
+    if Path(cut_base + ".stats").exists() or [Path(p).name for p in saves] != kept[:2]:
+        raise AssertionError(f"resume: the killed run left {saves} and maybe chain files")
+    report("b killed", killed, f"stopped by the chunk callback after {Path(saves[1]).name}")
+    run = _drive_cli(cut / "fit.cfg")
+    again = run["fits"][0][0]
+    for suffix in (".stats", "_equal_weights.txt"):
+        if Path(cut_base + suffix).read_bytes() != Path(ref_base + suffix).read_bytes():
+            raise AssertionError(f"resume: {suffix} differs from the uninterrupted run's")
+    if again.n_like != res.n_like or run["rows"] >= killed["rows"]:
+        raise AssertionError("resume: the second start did not go on from the checkpoint")
+    report("b resumed", run,
+           f"from {kept[1]}: n_like={again.n_like}, .stats and _equal_weights.txt byte for "
+           "byte the uninterrupted run's")
+    _write_cfg(cut / "seed44.cfg", cut, max_samples=RESUME_MAX_SAMPLES,
+               run=f"seed = 44\ncheckpoint = {cut / 'ckpt'}")
+    try:
+        _drive_cli(cut / "seed44.cfg")
+    except ValueError as e:
+        if "fingerprint mismatch on 'seed'" not in str(e):
+            raise
+        print(f"[9 b refused] seed 43's checkpoint offered to seed 44: {e}")
+    else:
+        raise AssertionError("resume: seed 44 took seed 43's checkpoint")
+
+    # (c) dynamic sampling with a [pc_settings] section, at the anchor
+    cfg = _anchor_cfg(tmp / "dynamic", solver="dypolychord", pc_settings=True)
+    run = _drive_cli(cfg)
+    (res, base), dyn = run["fits"][0], run["dynamic"][0]
+    logz, err, post = _read_chain_pair(base, 2 + 4)
+    near = _near_quadrature("dynamic", logz, err)
+    ess = posterior_ess(dyn.base.log_posterior_weights), posterior_ess(dyn.merged.log_posterior_weights)
+    if not ess[1] > ess[0]:
+        raise AssertionError(f"dynamic: posterior ESS {ess[0]:.0f} -> {ess[1]:.0f}")
+    stats = _stats_lines(base)
+    if not (len(stats) == 3 and stats[1].startswith("# insertion-rank KS p = ")
+            and stats[2].startswith("# boost insertion-rank KS p = ")):
+        raise AssertionError(f"dynamic: bad .stats: {stats}")
+    dead = np.loadtxt(base + "_dead-birth.txt", ndmin=2)
+    rows = [int(np.isfinite(r.logw).sum()) for r in (dyn.base, dyn.boost)]
+    prior_born = int(np.sum(dead[:, -1] == -1e30))
+    boost_births = dead[rows[0]:, -1]  # the boost's first live set is born at l_init
+    at_l_init = int(np.sum(boost_births == np.float32(dyn.l_init)))
+    rebuilt = _deadbirth_logz(dead)
+    if (dead.shape != (sum(rows), 4 + 2) or prior_born != ANCHOR_NLIVE
+            or at_l_init != ANCHOR_NLIVE or not np.all(boost_births >= np.float32(dyn.l_init))
+            or not abs(rebuilt - logz) < 3.0 * err + 0.3):
+        raise AssertionError(f"dynamic: bad _dead-birth.txt: shape {dead.shape}, rows {rows}, "
+                             f"{prior_born} prior-born, {at_l_init} born at l_init, logZ from "
+                             f"it {rebuilt:.3f}")
+    for prefix in ("ns_state", "ns_boost"):
+        n = len(list(Path(base + "_resume").glob(f"{prefix}_*.npz")))
+        if not 1 <= n <= 3:
+            raise AssertionError(f"dynamic: {n} {prefix} checkpoints in {base}_resume")
+    report("c dynamic", run,
+           f"solver=dypolychord with [pc_settings], ndim=4 nlive={ANCHOR_NLIVE}: base n_like={dyn.base.n_like} "
+           f"logZ {float(dyn.base.logz):.3f}, boost above lnL={dyn.l_init:.3f} n_like="
+           f"{dyn.boost.n_like}, merged logZ {logz:.3f} +/- {err:.3f} ({near}), posterior ESS "
+           f"{ess[0]:.0f} -> {ess[1]:.0f}, _dead-birth.txt rows {rows[0]} + {rows[1]} (logZ from "
+           f"it {rebuilt:.3f}), base and boost checkpoints under {Path(base).name}_resume/")
+
+    # (d) the repeats ladder from an under-mixed start
+    cfg = _anchor_cfg(tmp / "ladder", ns="num_repeats = 2\nauto_repeats = True\n")
+    run = _drive_cli(cfg, "--debug")
+    res, base = run["fits"][0]
+    logz, err, _ = _read_chain_pair(base, 2 + 4)
+    stats = _stats_lines(base)
+    m = re.match(r"# auto_repeats ladder converged=(True|False) \(rungs \[([0-9, ]+)\], "
+                 r"final num_repeats=(\d+)\)", stats[1])
+    if not m or len(stats) != 4 or not all(
+            stats[2 + i].startswith(f"# seed{i} insertion-rank KS p = ") for i in (0, 1)):
+        raise AssertionError(f"ladder: bad .stats: {stats}")
+    rungs = [int(x) for x in m[2].split(",")]
+    if len(rungs) < 2 or rungs != [2 << k for k in range(len(rungs))] or int(m[3]) != rungs[-1]:
+        raise AssertionError(f"ladder: rungs {rungs}, final {m[3]}")
+    near = _near_quadrature("ladder", logz, err)
+    report("d ladder", run,
+           f"auto_repeats from num_repeats=2, ndim=4 nlive={ANCHOR_NLIVE}: rungs {rungs}, converged={m[1]}, "
+           f"merged logZ {logz:.3f} +/- {err:.3f} ({near})")
+
+    # (e) the fixed-k grid
+    cfg = _anchor_cfg(tmp / "grid", ncomp="1,2", run="ncomp_grid = True")
+    run = _drive_cli(cfg)
+    if len(run["fits"]) != 3:  # k = 1, k = 2, and the grid itself
+        raise AssertionError(f"grid: {len(run['fits'])} run_fit calls")
+    base = run["fits"][-1][1]
+    per_k = {k: _read_chain_pair(f"{base}_k{k}", 2 + 1 + 3 * k) for k in (1, 2)}
+    best = max(per_k, key=lambda k: per_k[k][0])
+    table = Path(base + "_ncomp_grid.txt").read_text().splitlines()
+    if (len(table) != 4 or table[0] != "# k  logZ  logZerr  dlogZ_vs_best"
+            or [ln.split()[0] for ln in table[1:3]] != ["1", "2"]
+            or [float(ln.split()[1]) for ln in table[1:3]] != [round(per_k[k][0], 4) for k in (1, 2)]
+            or not table[3].startswith(f"# best k = {best}; trans-dimensional evidence")):
+        raise AssertionError(f"grid: bad table {table}")
+    for suffix in (".stats", "_equal_weights.txt"):
+        if Path(base + suffix).read_bytes() != Path(f"{base}_k{best}{suffix}").read_bytes():
+            raise AssertionError(f"grid: {suffix} is not the best k's")
+    report("e grid", run,
+           f"ncomp = 1, 2 with ncomp_grid, nlive={ANCHOR_NLIVE}: logZ k=1 {per_k[1][0]:.3f} +/- "
+           f"{per_k[1][1]:.3f}, k=2 {per_k[2][0]:.3f} +/- {per_k[2][1]:.3f}, best k = {best} "
+           f"copied to the base name; {table[3][2:]}")
+
+    # (f) two spectra, one fit each
+    cfg = _anchor_cfg(tmp / "spectra", specfile="civ_mock_spec.txt, civ_mock_spec_multicomp.txt")
+    run = _drive_cli(cfg)
+    fits = run["fits"][-1]  # the list of (results, base), one per spectrum
+    stems = ("civ_mock_spec", "civ_mock_spec_multicomp")
+    if len(fits) != 2 or [Path(b).name for _, b in fits] != [f"pc_fits_0_{s}" for s in stems]:
+        raise AssertionError(f"spectra: fits under {[b for _, b in fits]}")
+    pairs = [_read_chain_pair(b, 2 + 4) for _, b in fits]
+    report("f spectra", run,
+           f"two spectra, the 1-comp model on each, nlive={ANCHOR_NLIVE}: " + ", ".join(
+               f"{s} n_like={r.n_like} logZ {p[0]:.3f} +/- {p[1]:.3f}"
+               for s, (r, _), p in zip(stems, fits, pairs)))
+    return total
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -768,11 +1106,12 @@ def main() -> int:
     try:
         flagship = phase_slice(tmp, "flagship")
         narrow = phase_slice(tmp, "narrow", brange="3.0, 40.0")
+        tau_path = phase_tau_path(narrow["posterior"])
+        phase_anchor([10.0, 40.0], QUADRATURE_LOGZ, "1-comp")
+        phase_anchor([3.0, 40.0], NARROW_LOGZ, "1-comp narrow")
+        launches_variants = phase_variants(tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    tau_path = phase_tau_path(narrow["posterior"])
-    phase_anchor([10.0, 40.0], QUADRATURE_LOGZ, "1-comp")
-    phase_anchor([3.0, 40.0], NARROW_LOGZ, "1-comp narrow")
     imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "mcalf_tpu"))
     if imported:
         raise AssertionError(f"the port imported {imported[:5]}")
@@ -787,6 +1126,7 @@ def main() -> int:
             "replaces": "mcalf_tpu/ops/voigt_pallas.py:150 and :213",
             "launches": narrow["launches"],
             "launches_flagship_slice": flagship["launches"],
+            "launches_phase9": launches_variants,
             "max_abs_err": worst,
             "max_abs_dchi2_ragged": worst_ragged,
             "ms": f_ms,

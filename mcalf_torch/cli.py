@@ -3,8 +3,10 @@
 
 Same interface as ``mc-alf-tpu``: positional config file, ``--debug`` for
 verbosity, ``--version``.  The fit runs the port's nested sampler on the
-device ``[run] device`` names (the GPU by default).  Plotting is not ported
-yet: with ``doplot`` set the command says so and skips it.
+device ``[run] device`` names (the GPU by default), whichever of the
+runner's fits the config asks for (:mod:`mcalf_torch.runner`); ``specfile``
+as a list fits one spectrum after another.  Plotting is not ported yet: with
+``doplot`` set the command says so, once per spectrum, and skips it.
 """
 
 from __future__ import annotations
@@ -32,7 +34,16 @@ def main(argv=None) -> int:
     os.makedirs(configpars["chaindir"], exist_ok=True)
 
     # Heavy imports after arg parsing so --help/--version stay fast.
-    from mcalf_torch.runner import build_model, run_fit
+    from mcalf_torch.runner import build_model, run_fit, spectrum_subconfigs
+
+    if len(configpars.get("specfiles") or []) > 1:
+        # Several sightlines: one fit (and one plot) per spectrum.
+        if configpars["dofit"]:
+            run_fit(configpars, debug=args.debug)
+        if configpars["doplot"]:
+            for sub in spectrum_subconfigs(configpars):
+                _plot_note(sub)
+        return 0
 
     model = build_model(configpars, debug=args.debug)
     if args.debug:
@@ -43,12 +54,18 @@ def main(argv=None) -> int:
     if configpars["dofit"]:
         run_fit(configpars, debug=args.debug, model=model)
     if configpars["doplot"]:
-        print(
-            "NOTE: plotting is not ported to mcalf_torch yet (ROADMAP Queue 1: "
-            "plotting); skipped.  `python -m mcalf_tpu` with [run] dofit = "
-            "False plots these chain files."
-        )
+        _plot_note(configpars)
     return 0
+
+
+def _plot_note(configpars) -> None:
+    from mcalf_torch.runner import chain_basename
+
+    print(
+        "NOTE: plotting is not ported to mcalf_torch yet (ROADMAP Queue 1: "
+        f"plotting); skipped for {chain_basename(configpars)}.  `python -m "
+        "mcalf_tpu` with [run] dofit = False plots these chain files."
+    )
 
 
 if __name__ == "__main__":

@@ -4,6 +4,12 @@ from mcalf_torch.sampler.clusters import (
     posterior_cluster_report,
 )
 from mcalf_torch.sampler.diagnostics import RankDiagnostic, insertion_rank_test
+from mcalf_torch.sampler.dynamic import (
+    DynamicResults,
+    dynamic_sample,
+    posterior_ess,
+)
+from mcalf_torch.sampler.merge import MergedRun, merge_results, nlive_of_logl
 from mcalf_torch.sampler.nested import (
     NSConfig,
     NSResults,
@@ -18,7 +24,16 @@ from mcalf_torch.sampler.nested import (
     run_steps,
     slice_chains,
 )
-from mcalf_torch.sampler.results import equal_weights_matrix, resample_equal
+from mcalf_torch.sampler.repeats import (
+    ConvergedRun,
+    LadderRung,
+    converged_sample,
+)
+from mcalf_torch.sampler.results import (
+    equal_weights_matrix,
+    posterior_stats,
+    resample_equal,
+)
 
 __all__ = [
     "NSConfig",
@@ -34,10 +49,20 @@ __all__ = [
     "run_steps",
     "slice_chains",
     "equal_weights_matrix",
+    "posterior_stats",
     "resample_equal",
+    "MergedRun",
+    "merge_results",
+    "nlive_of_logl",
     "RankDiagnostic",
     "insertion_rank_test",
     "ClusterReport",
     "assign_clusters",
     "posterior_cluster_report",
+    "DynamicResults",
+    "dynamic_sample",
+    "posterior_ess",
+    "ConvergedRun",
+    "LadderRung",
+    "converged_sample",
 ]

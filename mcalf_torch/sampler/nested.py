@@ -122,6 +122,11 @@ class NSState(NamedTuple):
     step: int
     dead_rank: torch.Tensor     # (cap,) int32 insertion ranks, -1 unfilled
     live_cluster: torch.Tensor  # (nlive,) int64 cluster ids
+    #: the run's torch.Generator state (``gen.get_state()``, a uint8 tensor
+    #: on the host) at the chunk boundary this state was handed out at; None
+    #: inside a chunk and on a state that came from the JAX package.  Its
+    #: size depends on the generator's device type.
+    rng: Optional[torch.Tensor] = None
 
 
 class NSResults(NamedTuple):
@@ -183,7 +188,9 @@ def init_state(
 def nsstate_from_numpy(state: Any, device: "torch.device | str") -> NSState:
     """Build an :class:`NSState` on ``device`` from numpy-convertible fields:
     a mapping, or a named tuple such as the JAX package's NSState (whose
-    PRNG ``key`` is dropped -- the port draws from a torch.Generator)."""
+    PRNG ``key`` is dropped -- the port draws from a torch.Generator, so
+    such a state has ``rng=None`` and resumes on the generator it is given).
+    ``rng``, where present, stays on the host."""
     d = state._asdict() if hasattr(state, "_asdict") else dict(state)
 
     def t(name, dtype):
@@ -205,13 +212,20 @@ def nsstate_from_numpy(state: Any, device: "torch.device | str") -> NSState:
         step=int(np.asarray(d["step"])),
         dead_rank=t("dead_rank", torch.int32),
         live_cluster=t("live_cluster", torch.int64),
+        rng=(
+            torch.from_numpy(np.array(d["rng"], dtype=np.uint8))
+            if d.get("rng") is not None else None
+        ),
     )
 
 
 def nsstate_to_numpy(state: NSState) -> dict:
-    """Host numpy copy of every field (scalars as numpy scalars)."""
+    """Host numpy copy of every field (scalars as 0-d arrays; ``rng`` is
+    left out when the state carries none)."""
     out = {}
     for k, v in state._asdict().items():
+        if v is None:
+            continue
         out[k] = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
     return out
 
@@ -650,20 +664,37 @@ def finalize(final: NSState, config: NSConfig) -> NSResults:
     )
 
 
+def _restore_generator(gen: torch.Generator, rng: torch.Tensor) -> None:
+    """Put a saved generator state back.  A CPU generator's state and a CUDA
+    generator's differ in size, so a state saved on one device type cannot
+    continue on the other."""
+    if rng.numel() != gen.get_state().numel():
+        raise ValueError(
+            f"the saved generator state ({rng.numel()} bytes) is not one of a "
+            f"{gen.device.type} generator ({gen.get_state().numel()} bytes): a "
+            "sampler state resumes only on the device type it was saved on"
+        )
+    gen.set_state(rng.to(torch.uint8).cpu())
+
+
 def nested_sample(
     loglike_batch: Callable,
     gen: torch.Generator,
     config: NSConfig,
     device: "torch.device | str",
+    state: Optional[NSState] = None,
+    return_state: bool = False,
     chunk_steps: Optional[int] = None,
     on_chunk: Optional[Callable[[NSState], None]] = None,
-) -> NSResults:
+):
     """Run nested sampling on ``device``, stepping in chunks of outer steps
     from a host loop; the live set is re-clustered at every chunk boundary.
 
     The first boundary comes after 8 steps, then every ``chunk_steps``
     (default :data:`DEFAULT_CHUNK_STEPS`) outer steps; an explicit
-    ``chunk_steps`` applies from the start.
+    ``chunk_steps`` applies from the start.  The schedule is fixed in outer
+    steps, so a run resumed from a state that ``on_chunk`` was handed meets
+    the same boundaries, and ends bit for bit, as the uninterrupted run.
 
     Parameters
     ----------
@@ -671,20 +702,33 @@ def nested_sample(
     gen : torch.Generator on ``device``; every random draw comes from it
     config : NSConfig
     device : where the live set, the dead buffers and the draws live
-    on_chunk : optional host callback with the NSState after every chunk
+    state : resume from this NSState (a loaded checkpoint) instead of
+        drawing fresh live points; ``gen`` is set to the state's ``rng``
+        when it carries one, else ``gen`` goes on from where it stands
+    return_state : also return the final NSState
+    on_chunk : optional host callback with the NSState after every chunk;
+        that state holds the generator's state, so it can be saved and
+        resumed
 
     Returns NSResults (tensors on ``device``; ``.numpy()`` copies them to
-    the host).
+    the host), or (NSResults, NSState) when ``return_state``.
     """
     cfg = config.resolved()
-    state = init_state(loglike_batch, gen, cfg, device)
-    first = chunk_steps is None
+    if state is None:
+        state = init_state(loglike_batch, gen, cfg, device)
+    elif state.rng is not None:
+        _restore_generator(gen, state.rng)
+    # A state past step 0 has its 8-step probe behind it.
+    first = chunk_steps is None and state.step == 0
     chunk = DEFAULT_CHUNK_STEPS if chunk_steps is None else int(chunk_steps)
+    # The host touches the run only here, between chunks.
     while not is_done(state, cfg):
         state = _recluster(state, cfg)
         steps = _PROBE_STEPS if first else chunk
         first = False
         state = run_steps(loglike_batch, state, cfg, steps, gen)
+        state = state._replace(rng=gen.get_state())
         if on_chunk is not None:
             on_chunk(state)
-    return finalize(state, cfg)
+    results = finalize(state, cfg)
+    return (results, state) if return_state else results

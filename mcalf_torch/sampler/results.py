@@ -11,7 +11,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["resample_equal", "equal_weights_matrix"]
+__all__ = ["resample_equal", "posterior_stats", "equal_weights_matrix"]
 
 
 def _np(x, dtype) -> np.ndarray:
@@ -26,7 +26,11 @@ def resample_equal(
     """Draw S equally weighted posterior samples (with replacement) from the
     weighted dead-point set: inverse-CDF multinomial draws in float64 on the
     host, O(N + S) memory.  The S uniforms come from ``gen`` (a CPU
-    generator).  Returns (samples_u (S, ndim) float32, logl (S,) float32)."""
+    generator).  Returns (samples_u (S, ndim) float32, logl (S,) float32).
+
+    ``results`` is an :class:`~mcalf_torch.sampler.nested.NSResults` (tensors
+    or numpy) or a :class:`~mcalf_torch.sampler.merge.MergedRun`: anything
+    with ``samples_u``, ``logl`` and ``log_posterior_weights``."""
     logp = _np(results.log_posterior_weights, np.float64)
     w = np.exp(logp - logp.max())
     cdf = np.cumsum(w)
@@ -37,6 +41,17 @@ def resample_equal(
         _np(results.samples_u, np.float32)[idx],
         _np(results.logl, np.float32)[idx],
     )
+
+
+def posterior_stats(results):
+    """Weighted posterior mean/std per unit-cube dimension (host numpy)."""
+    logp = _np(results.log_posterior_weights, np.float64)
+    w = np.exp(logp - logp.max())
+    w /= w.sum()
+    u = _np(results.samples_u, np.float64)
+    mean = (w[:, None] * u).sum(axis=0)
+    var = (w[:, None] * (u - mean) ** 2).sum(axis=0)
+    return mean, np.sqrt(var)
 
 
 def equal_weights_matrix(samples_phys: np.ndarray, logl: np.ndarray) -> np.ndarray:

@@ -1,5 +1,7 @@
 """End to end through ``python -m mcalf_torch`` on the CPU: config file ->
-fit -> chain files in the JAX CLI's layout, without jax in the process."""
+fit -> chain files in the JAX CLI's layout, without jax in the process; and
+each of the runner's other fits once (tests/test_torch_runner_variants.py
+checks them in depth)."""
 
 import os
 import subprocess
@@ -170,18 +172,53 @@ def test_device_default_without_gpu_raises(tmp_path):
         ("", "auto_repeats = True", "auto_repeats"),
     ],
 )
-def test_unported_branches_raise(tmp_path, extra_run, extra_ns, match):
+def test_unported_branches_raise(tmp_path, monkeypatch, capsys, extra_run, extra_ns, match):
+    """The runner's branches that used to raise NotImplementedError (the
+    test keeps its name): each now runs through the CLI and leaves its own
+    files beside the chain pair.  tests/test_torch_runner_variants.py checks
+    the branches in depth."""
+    monkeypatch.chdir(tmp_path)  # `checkpoint = ckpt` is relative to the cwd
+    # cut at the cap, but for the boost pass, which needs a posterior
+    extra_ns = f"max_samples = {1200 if match == 'dynamic' else 300}\n" + extra_ns
     cfg = _write_cfg(tmp_path, run="device = cpu\n" + extra_run, extra=extra_ns)
-    with pytest.raises(NotImplementedError, match=match):
-        main([str(cfg)])
+    assert main([str(cfg)]) == 0
+    fits = tmp_path / "fits"
+    head = (fits / "pc_fits_0.stats").read_text()
+    assert head.startswith("log(Z)   : ")
+    assert np.isfinite(np.loadtxt(fits / "pc_fits_0_equal_weights.txt", ndmin=2)).all()
+    own = {
+        "seeds": [fits / "pc_fits_0_s1.stats", fits / "pc_fits_0_s2_equal_weights.txt"],
+        "ncomp_grid": [fits / "pc_fits_0_ncomp_grid.txt", fits / "pc_fits_0_k1.stats"],
+        "checkpoint": list((tmp_path / "ckpt").glob("ns_state_*.npz"))[:1] or [tmp_path / "none"],
+        "dynamic": [],
+        "auto_repeats": [],
+    }[match]
+    assert all(p.exists() for p in own), own
+    marks = {
+        "seeds": "# merged 2 seeds [1, 2] by birth contours",
+        "ncomp_grid": "# insertion-rank KS p",
+        "checkpoint": "# insertion-rank KS p",
+        "dynamic": "# boost insertion-rank KS p",
+        "auto_repeats": "# auto_repeats ladder converged=",
+    }
+    assert marks[match] in head
 
 
-def test_pc_settings_resume_not_ported(tmp_path):
-    # [pc_settings] turns the PolyChord resume machinery on by default
+def test_pc_settings_resume_not_ported(tmp_path, capsys):
+    """Formerly the NotImplementedError of a [pc_settings] section (the test
+    keeps its name): a bare section switches PolyChord's resume machinery
+    and the dead-birth file on, and the fit runs and resumes."""
     from mcalf_tpu.config import readconfig
 
     cp = readconfig(str(_write_cfg(tmp_path)))
     cp["solver"] = "polychord"
     cp["pc_settings"] = {"nlive": "50"}
-    with pytest.raises(NotImplementedError, match="checkpoint/resume"):
-        runner.run_fit(cp)
+    cp["ns_settings"] = dict(cp["ns_settings"], max_samples="300")
+    res, base = runner.run_fit(cp)
+    assert np.isfinite(res.logz) and base == str(tmp_path / "fits" / "pc_fits_0")
+    assert list((tmp_path / "fits" / "pc_fits_0_resume").glob("ns_state_*.npz"))
+    assert np.loadtxt(base + "_dead-birth.txt").shape[1] == 4 + 2
+    capsys.readouterr()
+    again, _ = runner.run_fit(cp)
+    assert "Resuming from checkpoint" in capsys.readouterr().out
+    assert again.logz == res.logz and again.n_like == res.n_like

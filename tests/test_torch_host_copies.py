@@ -143,6 +143,10 @@ def test_port_modules_import_neither_jax_nor_mcalf_tpu():
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "mcalf_tpu") or m.startswith(("jax.", "mcalf_tpu.")))
         assert not bad, bad
+        new = {"mcalf_torch.analysis", "mcalf_torch.utils.checkpoint",
+               "mcalf_torch.sampler.merge", "mcalf_torch.sampler.dynamic",
+               "mcalf_torch.sampler.repeats"}
+        assert new <= set(names), sorted(new - set(names))
         print("IMPORTED", len(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
@@ -152,4 +156,4 @@ def test_port_modules_import_neither_jax_nor_mcalf_tpu():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 20 and Path(mcalf_torch.__file__).parent.name == "mcalf_torch"
+    assert n >= 25 and Path(mcalf_torch.__file__).parent.name == "mcalf_torch"
