@@ -8,7 +8,8 @@ Phases, each printing lines tagged with its number:
    name and power limit as nvidia-smi gives them;
 2. build: compiles both kernels (csrc/fused_loglike.cu, csrc/voigt_tau.cu)
    with one nvcc call and prints ptxas's registers and spills per kernel
-   instantiation (each kernel's Harris-only and damped one);
+   instantiation (each kernel's Harris-only and damped one), and the fused
+   kernel's two beside their 48 and 80 registers before the problem axis;
 3. fused kernel vs plain, the same inputs at full width, B in {100, 37, 1},
    a prior-spread and a z-clustered batch, log L to rtol 1e-5 / atol 0.05
    with the -inf pattern exact (the JAX package's fused-vs-XLA tolerance):
@@ -20,7 +21,12 @@ Phases, each printing lines tagged with its number:
    the narrow flagship's by resampling (P in {1, 23, 255, 257, 2049, 5000}
    with half in {0, 11} where P > 2 half, and P = 65536 with T = 2, each at
    B in {1, 100}), chi^2 to rtol 1e-5 / atol 0.1 and n4/n5 within 1, and two
-   launches on the same inputs bit-identical;
+   launches on the same inputs bit-identical; then the problem axis: two
+   different problems stacked (the flagship, and the flagship model on a
+   shorter fit range padded to its 1999 pixels; the same for the asymmlike
+   model), their rows interleaved, B in {100, 37, 1} per problem, against
+   the plain version at the reference tolerance and every stacked row bit
+   for bit the single-problem launch's;
 4. tau kernel vs plain on the flagship, the narrow flagship and the mixed
    model, B in {100, 200, 13, 1000}: |dtau| / (|tau| + 1e-3) < 3e-5 (the
    JAX package's tau bar), the Harris-only instantiation picked for the
@@ -40,7 +46,8 @@ Phases, each printing lines tagged with its number:
    events around single calls; the plain version's is a call time; kernel
    and plain in turns (plain, kernel, kernel, plain).  Once, on the
    flagship at B=100, torch.profiler's kernel time cross-checks the graph
-   method.  Prints the fused kernel's cluster and tile geometry and its
+   method; one stacked launch of 4 x 100 flagship rows against four B=100
+   launches, device and call time.  Prints the fused kernel's cluster and tile geometry and its
    resident CTAs per SM and clusters per card, and the tau kernel's sample
    groups, tiles and resident CTAs per SM at each batch (the CUDA occupancy
    API);
@@ -59,10 +66,12 @@ Phases, each printing lines tagged with its number:
    changes from 1/30 to 1/37 where the posterior lies);
 9. the runner's other fits through ``mcalf_torch.cli.main``, each a failure
    if it raises, if a file is missing or malformed, or if fewer fused-kernel
-   launches than likelihood batches were counted.  At full width (copies of
-   testdata/fit.cfg as in phase 6): (a) ``seeds = 43,44``, per-seed and
-   merged files; (b) kill and resume: a run with ``[run] checkpoint`` to the
-   end (42 outer steps: chunk boundaries at 8 and 40), the same run stopped
+   launches than likelihood batches were counted (in a fleet: other than
+   one launch per stacked likelihood call).  At full width (copies of
+   testdata/fit.cfg as in phase 6): (a) ``seeds = 43,44``, one fleet,
+   per-seed and merged files; (b) kill and resume: a run with ``[run] checkpoint`` to the
+   end (42 outer steps: chunk boundaries at 8 and 40; 136 repeats, a quarter
+   of phase 6's, to keep the script inside its time), the same run stopped
    by an exception from the chunk callback after its second checkpoint and
    started again from the files, ``.stats`` and ``_equal_weights.txt`` byte
    for byte the uninterrupted run's, then seed 43's checkpoint refused for
@@ -71,11 +80,17 @@ Phases, each printing lines tagged with its number:
    implicit resume directory, ``_dead-birth.txt`` with base and boost rows),
    merged logZ within 2x its error, or 0.3, of 4985.51 and a posterior ESS
    above the base run's; (d) ``auto_repeats`` from ``num_repeats = 2``; (e)
-   ``ncomp = 1, 2`` with ``ncomp_grid``; (f) two spectra.
+   ``ncomp = 1, 2`` with ``ncomp_grid``; (f) two spectra, one fleet;
+10. the fleet at full width: ``mcalf_torch.parallel.fit_many`` on 4 seeds
+   (43-46) of phase 6's flagship slice, one fused launch per stacked
+   likelihood call; seed 43's ``.stats`` and ``_equal_weights.txt``, written
+   as the runner writes a fit's, byte for byte phase 6's; the fleet's
+   evals/s beside phase 6's.
 
 Then one JSON line with the kernels' launch counts, errors, device and
 call times and bounds (at the narrow flagship, B=100; the tau kernel's at
-every timed model and batch under ``by_batch``), and as the last
+every timed model and batch under ``by_batch``; the stacked launch under
+``stacked``), and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises.  The port
 must not import jax or mcalf_tpu: checked at the end.
 """
@@ -101,8 +116,10 @@ NARROW_LOGZ = QUADRATURE_LOGZ + math.log(30.0 / 37.0)  # brange 3, 40
 SLICE_MAX_SAMPLES = 1000
 SLICE_NUM_REPEATS = 544
 #: phase 9's kill-and-resume run: 42 outer steps of 100 deletions, so that two
-#: chunk boundaries (8 and 40 outer steps) lie before its end
+#: chunk boundaries (8 and 40 outer steps) lie before its end, at a quarter of
+#: the slice's repeats (the boundaries are counted in steps, not evaluations)
 RESUME_MAX_SAMPLES = 4200
+RESUME_NUM_REPEATS = 136
 
 #: the H100 SXM's published peaks (NVIDIA data sheet, at 700 W): float32
 #: outside the tensor cores, and device memory
@@ -118,6 +135,12 @@ MODELS = {
     "asymmlike": dict(_CIV, ncomp=(2, 4), nfill=1, brange=[10.0, 40.0],
                       Asymmlike=True),
     "narrow": dict(_CIV, ncomp=(8, 11), brange=[3.0, 40.0]),
+    # the flagship's and the asymmlike model on a shorter range, padded to
+    # 1999 pixels to stack with them
+    "flagship_short": dict(_CIV, ncomp=(8, 11), brange=[10.0, 40.0],
+                           fitrange=[(6182.0, 6216.0)]),
+    "asymmlike_short": dict(_CIV, ncomp=(2, 4), nfill=1, brange=[10.0, 40.0],
+                            Asymmlike=True, fitrange=[(6182.0, 6216.0)]),
     "mixed": dict(
         fitrange=[(6180.0, 6220.0)], fitlines=["CIV 1548", "HI 1215"],
         ncomp=(1, 3), nfill=1, specres=[8.0], Nrange=[12.0, 14.5],
@@ -142,13 +165,20 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from mcalf_torch.ops._build import load
 
     built = load()
     print(f"[2 build] {built.path.name} built in {built.build_seconds:.2f} s")
+    regs = {}
     for name, line in ptxas_counts(built.log):
         print(f"[2 build] ptxas {name}: {line}")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name.startswith("fused_loglike_kernel"):
+            regs[name] = int(m[1])
+    print(f"[2 build] fused_loglike registers with the problem axis: {regs} "
+          "(48 Harris-only and 80 damped before it)")
+    return regs
 
 
 def ptxas_counts(log: str):
@@ -342,6 +372,75 @@ def phase_ragged_check() -> float:
     return worst
 
 
+def _stacked_pair(name):
+    """The StackedForward of two different problems on the card: model
+    ``name`` and the same model on a shorter fit range, padded to its
+    pixels; and each problem's own TorchForward."""
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.models.batched import pad_model_to_npix, stack_problems
+    from mcalf_torch.models.torch_model import make_stacked_forward
+
+    full = _model(name)
+    models = [full, pad_model_to_npix(_model(name + "_short"), full.npix)]
+    spec, stacked = stack_problems(models)
+    return make_stacked_forward(spec, stacked, "cuda"), [make_torch_forward(m, "cuda") for m in models]
+
+
+def _stacked_args(sf, u, prob):
+    from mcalf_torch.models import torch_model as tm
+
+    c = tm.row_consts(sf.consts(), prob)
+    dz = (u[:, c["u_zidx"]] - 0.5) * c["zspan"]
+    p = tm.cube_to_params_core(u, c)
+    return p, c, tm.fused_args(p, c, sf.static, dz=dz, prob=prob)
+
+
+def phase_stacked_check() -> float:
+    """The kernel's problem axis: two problems' rows interleaved in one
+    launch, against the plain version at the reference tolerance, and each
+    row bit for bit the single-problem launch's.  Returns the largest
+    |dlogL|."""
+    from mcalf_torch.models import torch_model as tm
+    from mcalf_torch.ops import voigt_cuda
+
+    worst = 0.0
+    for name in ("flagship", "asymmlike"):
+        sf, solo = _stacked_pair(name)
+        s = sf.static
+        for B in (100, 37, 1):
+            u = _batch(s.ndim, 2 * B, False, seed=50 + B, layout=None)
+            prob = torch.arange(2 * B, device="cuda", dtype=torch.int32) % 2
+            p, c, args = _stacked_args(sf, u, prob)
+            kw = dict(half=s.half, asymm=s.asymmlike, prob=prob)
+            k = voigt_cuda.fused_loglike(*args, **kw)
+            q = voigt_cuda.fused_loglike_plain(*args, **kw)
+            lk = tm.loglike_from_fused(p, c, s, *k).double().cpu().numpy()
+            lp = tm.loglike_from_fused(p, c, s, *q).double().cpu().numpy()
+            torch.cuda.synchronize()
+            if not np.array_equal(np.isfinite(lk), np.isfinite(lp)):
+                raise AssertionError(f"stacked {name} B={B}: -inf pattern differs")
+            fin = np.isfinite(lk)
+            err = float(np.max(np.abs(lk[fin] - lp[fin]), initial=0.0))
+            if not np.allclose(lk[fin], lp[fin], rtol=1e-5, atol=0.05):
+                raise AssertionError(f"stacked {name} B={B}: max |dlogL| = {err}")
+            if not np.allclose(k[0].double().cpu().numpy(), q[0].double().cpu().numpy(),
+                               rtol=1e-5, atol=0.1):
+                raise AssertionError(f"stacked {name} B={B}: chi2 differs from plain")
+            for i in range(2):
+                rows = prob == i
+                one = voigt_cuda.fused_loglike(
+                    *_fused_args(solo[i], u[rows])[1], half=s.half, asymm=s.asymmlike)
+                if not all(torch.equal(a[rows], b) for a, b in zip(k, one)):
+                    raise AssertionError(f"stacked {name} B={B}: problem {i}'s rows are not "
+                                         "the single-problem launch's")
+            worst = max(worst, err)
+            print(f"[3 stacked] {name} + {name}_short padded, T={s.ntrans} P={s.npix}, "
+                  f"2 x {B} rows interleaved in one launch: max |dlogL| vs plain {err:.3g}, "
+                  f"finite {int(fin.sum())}/{2 * B}, every row bit for bit the "
+                  "single-problem launch's")
+    return worst
+
+
 def phase_tau_check() -> float:
     """Returns the largest |dtau| (the check is relative, see above)."""
     from mcalf_torch.models import make_torch_forward
@@ -513,20 +612,29 @@ def _tau_ops(args) -> float:
     return ops
 
 
-def _bound(args, fused: bool, half: int = 0):
+def _bound(args, fused: bool, half: int = 0, prob=None):
     """(bound ms, 'bytes' or 'operations'): the larger of the bytes the
     call must move over the memory rate and its operations over the
-    float32 rate."""
+    float32 rate.  With ``prob`` (a stacked launch) each problem's rows
+    count against its own tables."""
     dz, _, _, _, d0, cw = args[:6]
     B, T = dz.shape
-    P = cw.shape[0]
-    ops = _tau_ops(_tau_args(args) if fused else args)
-    nbytes = 4 * (4 * B * T + T * P + P + 2 * T)
+    P = cw.shape[-1]
+    targs = _tau_args(args) if fused else args
+    if prob is None:
+        ops = _tau_ops(targs)
+    else:
+        ops = 0.0
+        for q in range(d0.shape[0]):
+            rows = prob == q
+            ops += _tau_ops(tuple(a[rows] for a in targs[:4]) + (d0[q], cw[q]) + targs[6:])
+    nbytes = 4 * (4 * B * T + d0.numel() + cw.numel() + 2 * T) + (0 if prob is None else 4 * B)
     if fused:
         K = 2 * half + 1
-        kern, cont = args[9], args[10]
+        data, ivar, inv_noise, kern, cont = args[6:11]
         ops += B * (P + 2 * K * max(P - 2 * half, 0) + 4 * P)  # exp, LSF, chi^2
-        nbytes += 4 * (3 * P + kern.numel() + cont.numel() + 3 * B)
+        nbytes += 4 * (data.numel() + ivar.numel() + inv_noise.numel() + kern.numel()
+                       + cont.numel() + 3 * B)
     else:
         nbytes += 4 * B * P
     t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
@@ -619,11 +727,49 @@ def phase_timing(smi: str) -> dict:
                 f"{g.grid} CTAs of {g.threads} threads, {g.smem} B of shared memory each; "
                 f"{ctas} CTAs ({ctas * g.threads // 32} warps) resident per SM"
             )
+    out["stacked"] = _time_stacked(smi)
     return out
 
 
+def _time_stacked(smi: str) -> dict:
+    """One launch of 4 x 100 flagship rows (four stacked problems, a
+    fleet's batch) against the four B=100 launches of the problems alone,
+    in turns."""
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.models.batched import stack_problems
+    from mcalf_torch.models.torch_model import make_stacked_forward
+    from mcalf_torch.ops import voigt_cuda
+
+    model = _model("flagship")
+    spec, stacked = stack_problems([model] * 4)
+    sf = make_stacked_forward(spec, stacked, "cuda")
+    fwd = make_torch_forward(model, "cuda")
+    u = _batch(spec.ndim, 400, False, seed=400, layout=None)
+    prob = torch.arange(4, device="cuda", dtype=torch.int32).repeat_interleave(100)
+    args = _stacked_args(sf, u, prob)[2]
+    singles = [_fused_args(fwd, u[100 * q:100 * (q + 1)])[1] for q in range(4)]
+    kw = dict(half=spec.half, asymm=False)
+    one = lambda: voigt_cuda.fused_loglike(*args, **kw, prob=prob)
+    four = lambda: [voigt_cuda.fused_loglike(*a, **kw) for a in singles]
+    plain = lambda: voigt_cuda.fused_loglike_plain(*args, **kw, prob=prob)
+    dev = [_device_ms(four), _device_ms(one), _device_ms(one), _device_ms(four)]
+    call = [_median_ms(four), _median_ms(one), _median_ms(one), _median_ms(four)]
+    plain_ms = _median_ms(plain, reps=5)
+    bound, by = _bound(args, True, spec.half, prob=prob)
+    rec = dict(rows=400, ms=(dev[1] + dev[2]) / 2, call_ms=(call[1] + call[2]) / 2,
+               four_launches_ms=(dev[0] + dev[3]) / 2, four_calls_ms=(call[0] + call[3]) / 2,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    print(
+        f"[5 timing] stacked flagship 4 x 100 rows: one launch device {dev[1]:.4f}/{dev[2]:.4f} "
+        f"ms, call {call[1]:.4f}/{call[2]:.4f} ms; four B=100 launches device "
+        f"{dev[0]:.4f}/{dev[3]:.4f} ms, calls {call[0]:.4f}/{call[3]:.4f} ms; plain "
+        f"{plain_ms:.2f} ms; bound {bound:.4f} ms ({by})  [{smi}]"
+    )
+    return rec
+
+
 def _write_cfg(path: Path, outdir: Path, brange=None, run="",
-               max_samples=SLICE_MAX_SAMPLES) -> None:
+               max_samples=SLICE_MAX_SAMPLES, num_repeats=SLICE_NUM_REPEATS) -> None:
     """A copy of testdata/fit.cfg that writes under ``outdir``, its depth cut
     by ``max_samples``; ``run`` holds further lines of its [run] section."""
     text = (TESTDATA / "fit.cfg").read_text()
@@ -635,7 +781,7 @@ def _write_cfg(path: Path, outdir: Path, brange=None, run="",
     text += (
         "\n[ns_settings]\n"
         f"max_samples = {max_samples}\n"
-        f"num_repeats = {SLICE_NUM_REPEATS}\n"
+        f"num_repeats = {num_repeats}\n"
     )
     path.write_text(text)
 
@@ -643,17 +789,19 @@ def _write_cfg(path: Path, outdir: Path, brange=None, run="",
 def _drive_cli(cfg: Path, *argv) -> dict:
     """``mcalf_torch.cli.main`` on ``cfg`` with the fused kernel's launch
     count set to 0 just before and read just after.  Beside it: what every
-    ``runner.run_fit`` and ``runner.dynamic_sample`` call returned, and the
-    likelihood batches (calls of ``TorchForward.loglike_cube``) and their
-    rows.  An exception of the fit passes through, the counts up to it in
+    ``runner.run_fit`` and ``runner.dynamic_sample`` call returned, the
+    likelihood batches (calls of ``TorchForward.loglike_cube``), the
+    stacked likelihood calls of a fleet (``StackedForward.loglike_cube``)
+    and their rows.  An exception of the fit passes through, the counts up to it in
     its ``drive`` attribute."""
     from mcalf_torch import cli, runner
-    from mcalf_torch.models.torch_model import TorchForward
+    from mcalf_torch.models.torch_model import StackedForward, TorchForward
     from mcalf_torch.ops import voigt_cuda
 
-    out = {"fits": [], "dynamic": [], "batches": 0, "rows": 0}
+    out = {"fits": [], "dynamic": [], "batches": 0, "rows": 0, "stacked": 0}
     run_fit, dynamic_sample = runner.run_fit, runner.dynamic_sample
     loglike_cube = TorchForward.loglike_cube
+    stacked_loglike_cube = StackedForward.loglike_cube
 
     def recording(fn, into):
         def wrapped(*a, **k):
@@ -667,9 +815,15 @@ def _drive_cli(cfg: Path, *argv) -> dict:
         out["rows"] += u.shape[:-1].numel()
         return loglike_cube(self, u)
 
+    def counted_stacked(self, u, prob):
+        out["stacked"] += 1
+        out["rows"] += u.shape[0]
+        return stacked_loglike_cube(self, u, prob)
+
     runner.run_fit = recording(run_fit, out["fits"])
     runner.dynamic_sample = recording(dynamic_sample, out["dynamic"])
     TorchForward.loglike_cube = counted_loglike_cube
+    StackedForward.loglike_cube = counted_stacked
     try:
         voigt_cuda.launches = 0
         torch.cuda.synchronize()
@@ -686,6 +840,7 @@ def _drive_cli(cfg: Path, *argv) -> dict:
     finally:
         runner.run_fit, runner.dynamic_sample = run_fit, dynamic_sample
         TorchForward.loglike_cube = loglike_cube
+        StackedForward.loglike_cube = stacked_loglike_cube
     return out
 
 
@@ -729,7 +884,7 @@ def phase_slice(tmp: Path, name: str, brange=None) -> dict:
         f"equal-weight rows {posterior.shape[0]}"
     )
     return {"launches": launches, "wall": wall, "n_like": res.n_like,
-            "posterior": posterior}
+            "posterior": posterior, "base": base}
 
 
 def phase_tau_path(posterior: np.ndarray) -> dict:
@@ -868,9 +1023,16 @@ def _anchor_cfg(out: Path, *, solver="polychord", ncomp="1,1", run="", ns="",
 
 
 def _check_launches(tag: str, run: dict) -> None:
+    """A solo fit: at least one fused launch per likelihood batch.  A fleet
+    (stacked calls, no solo batch): exactly one per stacked call."""
     if run.get("rc", 0) != 0:
         raise AssertionError(f"{tag}: cli.main returned {run['rc']}")
-    if run["batches"] == 0 or run["launches"] < run["batches"]:
+    if run["stacked"]:
+        if run["batches"] != 0 or run["launches"] != run["stacked"]:
+            raise AssertionError(f"{tag}: {run['launches']} fused-kernel launches for "
+                                 f"{run['stacked']} stacked likelihood calls and "
+                                 f"{run['batches']} solo batches")
+    elif run["batches"] == 0 or run["launches"] < run["batches"]:
         raise AssertionError(f"{tag}: {run['launches']} fused-kernel launches < "
                              f"{run['batches']} likelihood batches")
 
@@ -912,8 +1074,13 @@ def phase_variants(tmp: Path, smi: str) -> int:
         nonlocal total
         _check_launches(tag, run)
         total += run["launches"]
-        print(f"[9 {tag}] {text}; wall {run['wall']:.2f} s, fused-kernel launches "
-              f"{run['launches']} >= likelihood batches {run['batches']} "
+        if run["stacked"]:
+            launches = (f"fused-kernel launches {run['launches']} = stacked likelihood "
+                        f"calls {run['stacked']}")
+        else:
+            launches = (f"fused-kernel launches {run['launches']} >= likelihood batches "
+                        f"{run['batches']}")
+        print(f"[9 {tag}] {text}; wall {run['wall']:.2f} s, {launches} "
               f"({run['rows']} evaluations)  [{smi}]")
 
     # (a) a seed ensemble at full width, merged by birth contours
@@ -934,9 +1101,11 @@ def phase_variants(tmp: Path, smi: str) -> int:
     if (logz, err) != (merged.logz, merged.logzerr) or any(
             len(p) != SLICE_MAX_SAMPLES for p in (post, members[0][2], members[1][2])):
         raise AssertionError("seeds: the merged files are not the merged run's")
+    if not run["stacked"]:
+        raise AssertionError("seeds: the two seeds did not run as one fleet")
     report("a seeds", run,
            f"ndim=34 nlive=200 B=100 num_repeats={SLICE_NUM_REPEATS} max_samples="
-           f"{SLICE_MAX_SAMPLES}, seeds 43 and 44: logZ {members[0][0]:.3f} and "
+           f"{SLICE_MAX_SAMPLES}, seeds 43 and 44 as one fleet: logZ {members[0][0]:.3f} and "
            f"{members[1][0]:.3f}, merged {logz:.3f} +/- {err:.3f} (unconverged by design), "
            f"merged equal-weight rows {len(post)}")
 
@@ -945,6 +1114,7 @@ def phase_variants(tmp: Path, smi: str) -> int:
     for d in (ref, cut):
         d.mkdir()
         _write_cfg(d / "fit.cfg", d, max_samples=RESUME_MAX_SAMPLES,
+                   num_repeats=RESUME_NUM_REPEATS,
                    run=f"seed = 43\ncheckpoint = {d / 'ckpt'}")
     run = _drive_cli(ref / "fit.cfg")
     res, ref_base = run["fits"][0]
@@ -953,7 +1123,8 @@ def phase_variants(tmp: Path, smi: str) -> int:
     if kept != ["ns_state_000008.npz", "ns_state_000040.npz", "ns_state_000042.npz"]:
         raise AssertionError(f"resume: checkpoints of the uninterrupted run: {kept}")
     report("b uninterrupted", run,
-           f"max_samples={RESUME_MAX_SAMPLES} with [run] checkpoint: {res.n_iter} steps, "
+           f"max_samples={RESUME_MAX_SAMPLES}, num_repeats={RESUME_NUM_REPEATS} with "
+           f"[run] checkpoint: {res.n_iter} steps, "
            f"n_like={res.n_like}, logZ {logz:.3f} +/- {err:.3f}, checkpoints at steps 8, 40, 42")
 
     class Killed(RuntimeError):
@@ -991,6 +1162,7 @@ def phase_variants(tmp: Path, smi: str) -> int:
            f"from {kept[1]}: n_like={again.n_like}, .stats and _equal_weights.txt byte for "
            "byte the uninterrupted run's")
     _write_cfg(cut / "seed44.cfg", cut, max_samples=RESUME_MAX_SAMPLES,
+               num_repeats=RESUME_NUM_REPEATS,
                run=f"seed = 44\ncheckpoint = {cut / 'ckpt'}")
     try:
         _drive_cli(cut / "seed44.cfg")
@@ -1086,18 +1258,94 @@ def phase_variants(tmp: Path, smi: str) -> int:
     if len(fits) != 2 or [Path(b).name for _, b in fits] != [f"pc_fits_0_{s}" for s in stems]:
         raise AssertionError(f"spectra: fits under {[b for _, b in fits]}")
     pairs = [_read_chain_pair(b, 2 + 4) for _, b in fits]
+    if not run["stacked"] or not all(p[1] > 0 for p in pairs):
+        raise AssertionError(f"spectra: stacked calls {run['stacked']}, logzerr "
+                             f"{[p[1] for p in pairs]}")
     report("f spectra", run,
-           f"two spectra, the 1-comp model on each, nlive={ANCHOR_NLIVE}: " + ", ".join(
+           f"two spectra as one fleet, the 1-comp model on each, nlive={ANCHOR_NLIVE}: " + ", ".join(
                f"{s} n_like={r.n_like} logZ {p[0]:.3f} +/- {p[1]:.3f}"
                for s, (r, _), p in zip(stems, fits, pairs)))
     return total
 
 
+FLEET_SEEDS = (43, 44, 45, 46)
+
+
+def phase_fleet(tmp: Path, smi: str, flagship: dict) -> dict:
+    """Phase 10: ``fit_many`` on four seeds of phase 6's flagship slice,
+    the first phase 6's own; one fused launch per stacked likelihood call;
+    seed 43's files, written as the runner writes a fit's, byte for byte
+    phase 6's."""
+    from mcalf_torch import runner
+    from mcalf_torch.config import readconfig
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.models.torch_model import StackedForward
+    from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.parallel import fit_many, make_mesh
+    from mcalf_torch.sampler.nested import unstack_results
+
+    out = tmp / "fleet"
+    out.mkdir()
+    _write_cfg(out / "fit.cfg", out)
+    cp = readconfig(str(out / "fit.cfg"))
+    model = runner.build_model(cp)
+    mesh = make_mesh()
+    plan, cfg, _ = runner._sampler_configs(cp, model, mesh[0])
+    gens = [torch.Generator(device=mesh[0]).manual_seed(s) for s in FLEET_SEEDS]
+    loglike_cube, calls = StackedForward.loglike_cube, []
+
+    def counted(self, u, prob):
+        calls.append(u.shape[0])
+        return loglike_cube(self, u, prob)
+
+    StackedForward.loglike_cube = counted
+    try:
+        voigt_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit_many([model] * len(FLEET_SEEDS), cfg, mesh=mesh, generators=gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = voigt_cuda.launches
+    finally:
+        StackedForward.loglike_cube = loglike_cube
+    members = [r.numpy() for r in unstack_results(res)]
+    if launches != len(calls):
+        raise AssertionError(f"fleet: {launches} fused launches for {len(calls)} stacked calls")
+    n_like = sum(r.n_like for r in members)
+    if sum(calls) != n_like:
+        raise AssertionError(f"fleet: {sum(calls)} rows evaluated, members count {n_like}")
+    fwd = make_torch_forward(model, mesh[0])
+    base = runner._write_fit(cp, fwd, members[0], [("", members[0], cfg)], plan, cfg, [], False)
+    for suffix in (".stats", "_equal_weights.txt"):
+        if Path(base + suffix).read_bytes() != Path(flagship["base"] + suffix).read_bytes():
+            raise AssertionError(f"fleet: seed 43's {suffix} differs from phase 6's flagship slice")
+    rate, solo = n_like / wall, flagship["n_like"] / flagship["wall"]
+    iters = len(calls) - 1  # the first call evaluates the four initial live sets
+    print(
+        f"[10 fleet] fit_many, seeds {list(FLEET_SEEDS)} of the flagship slice (ndim 34, nlive "
+        f"200, B=100, {SLICE_NUM_REPEATS} repeats, max_samples {SLICE_MAX_SAMPLES}): wall "
+        f"{wall:.2f} s, {n_like} evaluations ({[r.n_like for r in members]}), {iters} stacked "
+        f"slice iterations + 1 initial call = {launches} fused launches, "
+        f"{wall / len(calls) * 1e3:.3f} ms per stacked call; logZ "
+        f"{[round(float(r.logz), 3) for r in members]}; seed 43's .stats and "
+        f"_equal_weights.txt byte for byte phase 6's"
+    )
+    print(
+        f"[10 fleet] aggregate {rate:.4g} evals/s against the solo flagship slice's "
+        f"{solo:.4g} evals/s (phase 6, {flagship['wall']:.2f} s, {flagship['launches']} "
+        f"launches): {rate / solo:.3f}x  [{smi}]"
+    )
+    return {"launches": launches, "wall": wall, "n_like": n_like, "rate": rate,
+            "solo_rate": solo}
+
+
 def main() -> int:
     smi = phase_device()
-    phase_build()
+    regs = phase_build()
     worst = phase_kernel_check()
     worst_ragged = phase_ragged_check()
+    worst_stacked = phase_stacked_check()
     worst_tau = phase_tau_check()
     timing = phase_timing(smi)
     tmp = ROOT / "build" / "chip_smoke"  # git-ignored
@@ -1110,6 +1358,7 @@ def main() -> int:
         phase_anchor([10.0, 40.0], QUADRATURE_LOGZ, "1-comp")
         phase_anchor([3.0, 40.0], NARROW_LOGZ, "1-comp narrow")
         launches_variants = phase_variants(tmp, smi)
+        fleet = phase_fleet(tmp, smi, flagship)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "mcalf_tpu"))
@@ -1127,8 +1376,10 @@ def main() -> int:
             "launches": narrow["launches"],
             "launches_flagship_slice": flagship["launches"],
             "launches_phase9": launches_variants,
+            "launches_fleet": fleet["launches"],
             "max_abs_err": worst,
             "max_abs_dchi2_ragged": worst_ragged,
+            "max_abs_err_stacked": worst_stacked,
             "ms": f_ms,
             "call_ms": f_call,
             "plain_ms": f_plain,
@@ -1136,6 +1387,11 @@ def main() -> int:
             "bound_by": f_by,
             "library_ms": None,
             "at": at,
+            "registers": regs,
+            # one launch of 4 x 100 flagship rows against four B=100 launches
+            "stacked": timing["stacked"],
+            "fleet_evals_per_s": fleet["rate"],
+            "solo_slice_evals_per_s": fleet["solo_rate"],
         },
         {
             "name": "voigt_tau",
@@ -1152,8 +1408,8 @@ def main() -> int:
             "library_ms": None,
             "at": at,
             # device ms (mean of two), call ms and bound ms per model and batch
-            "by_batch": {f"{m} B={B}": [round(v, 5) for v in (r["tau"][0], r["tau"][1], r["tau"][3])]
-                         for (m, B), r in timing.items()},
+            "by_batch": {f"{k[0]} B={k[1]}": [round(v, 5) for v in (r["tau"][0], r["tau"][1], r["tau"][3])]
+                         for k, r in timing.items() if k != "stacked"},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ Same interface as ``mc-alf-tpu``: positional config file, ``--debug`` for
 verbosity, ``--version``.  The fit runs the port's nested sampler on the
 device ``[run] device`` names (the GPU by default), whichever of the
 runner's fits the config asks for (:mod:`mcalf_torch.runner`); ``specfile``
-as a list fits one spectrum after another.  Plotting is not ported yet: with
+as a list fits the spectra together as one fleet when they stack, else one
+after another.  In a multi-process run only rank 0 prints.  Plotting is not ported yet: with
 ``doplot`` set the command says so, once per spectrum, and skips it.
 """
 
@@ -28,6 +29,16 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     configpars = readconfig(args.config)
+
+    # Multi-process fleets print from rank 0 only (the reference gates its
+    # output to MPI rank 0); is_rank0 initialises nothing.
+    from mcalf_torch.utils.rank import is_rank0
+
+    if not is_rank0():
+        import sys
+
+        sys.stdout = open(os.devnull, "w")
+
     print(f"MC-ALF-Torch version {__version__}")
     if args.debug:
         print("--- DEBUG mode, increased verbosity ---")

@@ -51,6 +51,12 @@
 //     for bit (the same fused multiply-add for u, the same transition order,
 //     the same tap order, reciprocals equal to IEEE division on the range
 //     used); only the order of the chi^2 sum changed.
+//   * Problem axis (the fleet, mcalf_torch/parallel/fleet.py): with `prob`
+//     set, d0 is (Q, T, P) and cw, data, ivar, inv_noise are (Q, P), and
+//     sample b reads problem prob[b]'s rows of them; its line tables, taps
+//     and continuum are per sample already.  A sample's cluster computes it
+//     alone, so its result does not depend on the other rows of the batch:
+//     a stacked row is the single-problem launch's row bit for bit.
 // Shared memory holds the line tables, the taps and one tile plus its halo,
 // so the spectrum's length no longer bounds it.
 
@@ -67,6 +73,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;  // the portable cluster size
 
+// Offset of sample b's problem's row in a (Q, P) table; 0 without a problem
+// axis.  An int (the wrapper keeps Q * T * P below 2^31), so a table's
+// address stays its base in the constant bank plus one index register, as
+// without the problem axis.
+__device__ __forceinline__ int problem_row(const int* prob, int b, int P) {
+  return prob == nullptr ? 0 : prob[b] * P;
+}
+
 // Resident CTAs per SM the registers must allow: 5 x 8 = 40 warps for a
 // model with only Harris transitions (48 registers), 3 x 8 = 24 for one with
 // a strongly damped transition, whose non-inlined Algorithm-916 call needs
@@ -77,15 +91,16 @@ fused_loglike_kernel(const float* __restrict__ dz,      // (B, T)
                      const float* __restrict__ gain,    // (B, T)
                      const float* __restrict__ av,      // (B, T)
                      const float* __restrict__ dnu,     // (B, T)
-                     const float* __restrict__ d0,      // (T, P)
-                     const float* __restrict__ cw,      // (P,)
-                     const float* __restrict__ data,    // (P,)
-                     const float* __restrict__ ivar,    // (P,)
-                     const float* __restrict__ inv_noise,  // (P,)
+                     const float* __restrict__ d0,      // ([Q,] T, P)
+                     const float* __restrict__ cw,      // ([Q,] P)
+                     const float* __restrict__ data,    // ([Q,] P)
+                     const float* __restrict__ ivar,    // ([Q,] P)
+                     const float* __restrict__ inv_noise,  // ([Q,] P)
                      const float* __restrict__ kern,    // (B or 1, K)
                      const float* __restrict__ cont,    // (B or 1,)
                      const float* __restrict__ tmin,    // (T,) mode-1 thresholds
                      const int* __restrict__ mode,      // (T,) 0, 1 or 2
+                     const int* __restrict__ prob,      // (B,) or nullptr
                      float* __restrict__ chi2,          // (B,)
                      float* __restrict__ n4,            // (B,)
                      float* __restrict__ n5,            // (B,)
@@ -123,9 +138,14 @@ fused_loglike_kernel(const float* __restrict__ dz,      // (B, T)
   mcalf::load_line_tables(L, b, T, dz, gain, av, dnu, tmin, mode);
 
   // tau synthesis + exp, one pixel per thread per step (kDamped is the
-  // host's L.any_damped).
-  for (int i = tid; i < n; i += kThreads)
-    own[i] = expf(-mcalf::tau_at<kDamped>(L, T, d0 + p0 + i, P, cw[p0 + i]));
+  // host's L.any_damped), at this sample's problem's rows of the tables.
+  {
+    const int qrow = problem_row(prob, b, P);
+    const int d0_at = qrow * T + p0;  // d0 is (Q, T, P)
+    const int cw_at = qrow + p0;
+    for (int i = tid; i < n; i += kThreads)
+      own[i] = expf(-mcalf::tau_at<kDamped>(L, T, d0 + (d0_at + i), P, cw[cw_at + i]));
+  }
   cluster.sync();  // every tile of the sample's exp(-tau) is written
 
   // Halo through distributed shared memory: the last `half` pixels of the
@@ -150,6 +170,7 @@ fused_loglike_kernel(const float* __restrict__ dz,      // (B, T)
   // the unconvolved flux, so every interior tap lies inside [0, P)),
   // continuum, residuals.
   const float cb = cont[b * cont_stride];
+  const int qrow = problem_row(prob, b, P);
   float chi = 0.0f;
   int c4 = 0, c5 = 0;
   for (int i = tid; i < n; i += kThreads) {
@@ -162,10 +183,10 @@ fused_loglike_kernel(const float* __restrict__ dz,      // (B, T)
       m = acc;
     }
     m = m * cb;
-    const float r = data[p] - m;
-    chi = chi + ivar[p] * r * r;
+    const float r = data[qrow + p] - m;
+    chi = chi + ivar[qrow + p] * r * r;
     if (asymm) {
-      const float rn = r * inv_noise[p];
+      const float rn = r * inv_noise[qrow + p];
       c4 += rn > 4.0f;
       c5 += rn > 5.0f;
     }
@@ -260,16 +281,17 @@ cudaError_t launch(const float* dz, const float* gain, const float* av,
                    const float* dnu, const float* d0, const float* cw,
                    const float* data, const float* ivar, const float* inv_noise,
                    const float* kern, const float* cont, const float* tmin,
-                   const int* mode, float* chi2, float* n4, float* n5, int B,
-                   int T, int P, int half, int tile, int cluster, int smem,
-                   int kern_stride, int cont_stride, int asymm, void* stream) {
+                   const int* mode, const int* prob, float* chi2, float* n4,
+                   float* n5, int B, int T, int P, int half, int tile,
+                   int cluster, int smem, int kern_stride, int cont_stride,
+                   int asymm, void* stream) {
   cudaError_t e = check_geometry<kDamped>(T, P, half, tile, cluster, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = launch_config(B, cluster, smem, attr, stream);
   e = cudaLaunchKernelEx(&cfg, fused_loglike_kernel<kDamped>, dz, gain, av, dnu,
                          d0, cw, data, ivar, inv_noise, kern, cont, tmin, mode,
-                         chi2, n4, n5, T, P, half, tile, kern_stride,
+                         prob, chi2, n4, n5, T, P, half, tile, kern_stride,
                          cont_stride, asymm);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -293,22 +315,24 @@ cudaError_t occupancy(int T, int P, int half, int tile, int cluster, int smem,
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream) without synchronising.
-// `damped`: some transition is in mode 2 (the host knows it from the mode
-// table, voigt_cuda._any_damped).  Returns the first CUDA error: a refused
+// `prob`: nullptr for one problem, else each sample's problem index into the
+// stacked d0, cw, data, ivar and inv_noise.  `damped`: some transition is in
+// mode 2 (the host knows it from the mode table, voigt_cuda._any_damped).  Returns the first CUDA error: a refused
 // launch (too much shared memory, a cluster that cannot be scheduled) never
 // runs, and only this check reports it.
 extern "C" int mcalf_fused_loglike(
     const float* dz, const float* gain, const float* av, const float* dnu,
     const float* d0, const float* cw, const float* data, const float* ivar,
     const float* inv_noise, const float* kern, const float* cont,
-    const float* tmin, const int* mode, float* chi2, float* n4, float* n5,
-    int B, int T, int P, int half, int tile, int cluster, int smem,
-    int kern_stride, int cont_stride, int asymm, int damped, void* stream) {
+    const float* tmin, const int* mode, const int* prob, float* chi2,
+    float* n4, float* n5, int B, int T, int P, int half, int tile,
+    int cluster, int smem, int kern_stride, int cont_stride, int asymm,
+    int damped, void* stream) {
   return static_cast<int>(
       (damped ? launch<true> : launch<false>)(
           dz, gain, av, dnu, d0, cw, data, ivar, inv_noise, kern, cont, tmin,
-          mode, chi2, n4, n5, B, T, P, half, tile, cluster, smem, kern_stride,
-          cont_stride, asymm, stream));
+          mode, prob, chi2, n4, n5, B, T, P, half, tile, cluster, smem,
+          kern_stride, cont_stride, asymm, stream));
 }
 
 // Occupancy of a geometry: CTAs of the kernel for `damped` resident on one

@@ -9,7 +9,11 @@ float32).  :func:`consts_from_numpy` carries that dict onto a device, and
 On a CUDA device the likelihood runs the fused kernel
 (:func:`mcalf_torch.ops.voigt_cuda.fused_loglike`) and the model flux the
 tau kernel (:func:`mcalf_torch.ops.voigt_cuda.voigt_tau`); on the CPU both
-run their plain PyTorch versions.  Each transition takes the JAX package's
+run their plain PyTorch versions.  :class:`StackedForward` holds several
+problems' constants with a leading problem axis
+(:func:`mcalf_torch.models.batched.stack_problems`) and evaluates rows of
+any of them in one fused-kernel launch, each row's constants picked by its
+problem index.  Each transition takes the JAX package's
 static choice of Voigt evaluation, as an int32 mode per transition
 (:func:`line_modes`): windowed Harris, plain Harris, or the full
 Algorithm-916/asymptotic ``hjert`` for a strongly damped line.
@@ -32,6 +36,7 @@ from mcalf_torch.ops.voigt_cuda import (
     MODE_HARRIS,
     MODE_HJERT,
     MODE_WINDOWED,
+    _runs,
     check_supported,
     fused_loglike,
     voigt_tau,
@@ -49,8 +54,11 @@ __all__ = [
     "loglike_cube_core",
     "reconstruct_core",
     "chi2_core",
+    "row_consts",
     "TorchForward",
+    "StackedForward",
     "make_torch_forward",
+    "make_stacked_forward",
 ]
 
 
@@ -269,7 +277,18 @@ def _head(p, c, s: StaticSpec):
     return specres, cont
 
 
-def _line_tables(p, c, s: StaticSpec, dz):
+def _pow10(N, prob):
+    """10**N.  On the CPU torch.pow rounds an element differently in its
+    vectorised loop and in the scalar loop that ends a tensor, so the bits
+    of a row depend on where it lies in the batch; a stacked batch there
+    takes it per run of one problem's rows, each exactly as that problem's
+    batch alone would."""
+    if prob is None or N.device.type != "cpu":
+        return torch.pow(10.0, N)
+    return torch.cat([torch.pow(10.0, N[a:b]) for a, b, _ in _runs(prob)])
+
+
+def _line_tables(p, c, s: StaticSpec, dz, prob=None):
     """Per-(sample, transition) dz, gain, damping a, Doppler width dnu."""
     nact = torch.floor(p[..., s.startind])
     pidx = c["pidx"]
@@ -279,7 +298,7 @@ def _line_tables(p, c, s: StaticSpec, dz):
         dz = p[..., pidx + 1] - c["zmid"]
     dnu = b * 1e5 * c["inv_wrest_cm"]
     avoigt = c["gamma"] / (4.0 * math.pi * dnu)
-    amp = TAU_CONST * torch.pow(10.0, N) * c["f"] / dnu
+    amp = TAU_CONST * _pow10(N, prob) * c["f"] / dnu
     active = ((c["comp_id"] < nact[..., None]) | c["is_fill"]).to(torch.float32)
     return dz, active * amp, avoigt, dnu
 
@@ -309,13 +328,17 @@ def reconstruct_core(p, c, s: StaticSpec, dz=None):
     return flux_model * torch.as_tensor(cont)[..., None]
 
 
-def fused_args(p, c, s: StaticSpec, dz=None):
+def fused_args(p, c, s: StaticSpec, dz=None, prob=None):
     """The positional arguments of :func:`fused_loglike` for physical
-    parameters p (..., ndim), flattened to a (B, ...) batch."""
+    parameters p (..., ndim), flattened to a (B, ...) batch.  With ``prob``
+    (B,), ``c`` holds :func:`row_consts` (per-row constants beside the
+    stacked tables the kernel indexes by problem)."""
     T = s.ntrans
     specres, cont = _head(p, c, s)
-    dz, gain, avoigt, dnu = _line_tables(p, c, s, dz)
-    if s.half > 0:
+    dz, gain, avoigt, dnu = _line_tables(p, c, s, dz, prob)
+    if s.half > 0 and "taps" in c:
+        kern = c["taps"]
+    elif s.half > 0:
         sigma_pix = (specres / FWHM_TO_SIGMA) / c["velstep"]
         kern = gaussian_kernel(sigma_pix.to(torch.float32), s.half)
         kern = kern.reshape(-1, 2 * s.half + 1)
@@ -353,18 +376,24 @@ def chi2_core(p, c, s: StaticSpec):
     return torch.sum(c["ivar"] * r * r, dim=-1)
 
 
-def loglike_core(p, c, s: StaticSpec, dz=None):
+def loglike_core(p, c, s: StaticSpec, dz=None, prob=None):
     """With ``conv_mode='same_edge'``: tau -> exp -> LSF conv -> chi^2 (+
     asymmlike counts) in one :func:`fused_loglike` call, the kernel on CUDA
     and its plain twin on the CPU; only the Gaussian-prior term stays
     outside.  Any other mode goes through :func:`reconstruct_core`, as the
-    JAX package's does."""
+    JAX package's does.  ``prob``: see :func:`loglike_cube_core`."""
     p = torch.as_tensor(p, dtype=torch.float32)
     if s.conv_mode == "same_edge":
         chi2, n4, n5 = fused_loglike(
-            *fused_args(p, c, s, dz=dz), half=s.half, asymm=s.asymmlike,
+            *fused_args(p, c, s, dz=dz, prob=prob), half=s.half,
+            asymm=s.asymmlike, prob=prob,
         )
         return loglike_from_fused(p, c, s, chi2, n4, n5)
+    if prob is not None:
+        raise NotImplementedError(
+            f"stacked problems take the fused likelihood ('same_edge'), not "
+            f"conv_mode={s.conv_mode!r}"
+        )
     m = reconstruct_core(p, c, s, dz=dz)
     r = c["data"] - m
     ll = -0.5 * (torch.sum(c["ivar"] * r * r, dim=-1) + c["const_term"])
@@ -385,32 +414,58 @@ def cube_to_params_core(u, c):
     return lo + torch.as_tensor(u, dtype=torch.float32) * (hi - lo)
 
 
-def loglike_cube_core(u, c, s: StaticSpec):
+def loglike_cube_core(u, c, s: StaticSpec, prob=None):
+    """Log-likelihood of unit-cube points.  With ``prob`` (B,) int32, ``c``
+    is a stacked set (:func:`mcalf_torch.models.batched.stack_problems`
+    carried by :func:`consts_from_numpy`), ``u`` is (B, ndim), and row b
+    belongs to problem prob[b]."""
+    if prob is not None:
+        c = row_consts(c, prob)
     # dz derived straight from the unit cube: resolution eps * zspan (~2.4e-9
     # in z) instead of the f32 redshift's eps * (1+z) ~ 2.4e-7 -- see the
     # d0/zmid note in build_consts.
     u = torch.as_tensor(u, dtype=torch.float32)
     dz = (u[..., c["u_zidx"]] - 0.5) * c["zspan"]
-    return loglike_core(cube_to_params_core(u, c), c, s, dz=dz)
+    return loglike_core(cube_to_params_core(u, c), c, s, dz=dz, prob=prob)
+
+
+#: stacked tables that the fused kernel indexes by problem itself
+_KERNEL_TABLES = ("d0", "c_over_wave", "data", "ivar", "inv_noise")
+#: per-problem constants the likelihood reads per row, gathered by problem
+_ROW_KEYS = (
+    "zmid", "zspan", "lo", "hi", "contval", "fixed_specres", "velstep",
+    "const_term", "cdf4", "cdf5", "grace", "inv_wrest_cm", "gamma", "f",
+    "taps", "gp_mu", "gp_isig2", "gp_norm",
+)
+
+
+def row_consts(c: Mapping[str, torch.Tensor], prob: torch.Tensor) -> Dict[str, Any]:
+    """Stacked constants -> what the likelihood of a stacked batch reads:
+    the per-problem scalars and tables of :data:`_ROW_KEYS` gathered per row
+    by ``prob``, the kernel's stacked tables and the shared layout and mode
+    tables as they are."""
+    out = {k: c[k] for k in _KERNEL_TABLES + ("pidx", "comp_id", "is_fill",
+                                             "u_zidx", "tmin", "modes")}
+    out.update((k, c[k][prob]) for k in _ROW_KEYS if k in c)
+    return out
 
 
 # ---------------------------------------------------------------------------
-# Single-problem module.
+# Modules: one problem, and several stacked.
 # ---------------------------------------------------------------------------
 
-class TorchForward(nn.Module):
-    """Forward model + likelihood of one fit problem, its constants held as
-    buffers on one device.  Every method takes arbitrary leading batch axes
-    on ``p`` (physical parameters, (..., ndim)) or ``u`` (unit cube)."""
+class _HeldConsts(nn.Module):
+    """Constants and the kernels' per-transition tables (always those of
+    ``static``) held as buffers, plus the (name, tensor) pairs of
+    ``extra``."""
 
-    def __init__(self, static: StaticSpec, consts: Mapping[str, torch.Tensor]):
+    def __init__(self, static: StaticSpec, consts: Mapping[str, torch.Tensor], extra=()):
         super().__init__()
         check_supported(static.ntrans, static.npix, static.half)
         self.static = static
         self.ndim = static.ndim
         self.npix = static.npix
         device = consts["d0"].device
-        # the kernels' per-transition tables, always those of ``static``
         tables = {
             "tmin": torch.tensor(
                 static.win_tmin or (0.0,) * static.ntrans,
@@ -418,6 +473,7 @@ class TorchForward(nn.Module):
             ),
             "modes": torch.tensor(line_modes(static), dtype=torch.int32, device=device),
         }
+        tables.update(extra)
         names = [k for k in consts if k not in tables]
         for k in names:
             self.register_buffer(k, consts[k])
@@ -427,6 +483,12 @@ class TorchForward(nn.Module):
 
     def consts(self) -> Dict[str, torch.Tensor]:
         return {k: getattr(self, k) for k in self._names}
+
+
+class TorchForward(_HeldConsts):
+    """Forward model + likelihood of one fit problem, its constants held as
+    buffers on one device.  Every method takes arbitrary leading batch axes
+    on ``p`` (physical parameters, (..., ndim)) or ``u`` (unit cube)."""
 
     def loglike_cube(self, u):
         """(..., ndim) unit-cube points -> (...) log-likelihood."""
@@ -464,3 +526,43 @@ def make_torch_forward(
     s = static_spec(model, conv_mode=conv_mode, gpriors=gpriors)
     c = consts_from_numpy(build_consts(model, gpriors=gpriors), device)
     return TorchForward(s, c)
+
+
+class StackedForward(_HeldConsts):
+    """The likelihood of Q stacked problems that share one
+    :class:`StaticSpec`, their constants held as buffers with a leading
+    problem axis (the layout and mode tables shared).  One call evaluates
+    rows of any of the problems, in one fused-kernel launch on CUDA.
+
+    With a fixed resolution each problem's LSF taps are made once here, by
+    the expression :func:`fused_args` evaluates for one problem, so a row's
+    taps are that problem's bit for bit."""
+
+    def __init__(self, static: StaticSpec, consts: Mapping[str, torch.Tensor]):
+        nprob = int(consts["d0"].shape[0])
+        extra = {}
+        if static.half > 0 and not static.freespecres:
+            extra["taps"] = torch.cat([
+                gaussian_kernel(
+                    ((consts["fixed_specres"][q] / FWHM_TO_SIGMA)
+                     / consts["velstep"][q]).to(torch.float32),
+                    static.half,
+                ).reshape(1, -1)
+                for q in range(nprob)
+            ])
+        super().__init__(static, consts, extra)
+        self.nprob = nprob
+
+    def loglike_cube(self, u, prob):
+        """(B, ndim) unit-cube points, (B,) int32 problem of each row ->
+        (B,) log-likelihood."""
+        return loglike_cube_core(u, self.consts(), self.static, prob=prob)
+
+
+def make_stacked_forward(
+    static: StaticSpec, stacked: Mapping[str, Any], device: "torch.device | str" = "cuda",
+) -> StackedForward:
+    """The :class:`StackedForward` of
+    :func:`~mcalf_torch.models.batched.stack_problems`'s output on ``device``
+    (the GPU unless the caller asks for the CPU)."""
+    return StackedForward(static, consts_from_numpy(stacked, device))

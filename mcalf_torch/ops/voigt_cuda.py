@@ -14,6 +14,11 @@
       m    = cont[b] * lsf_convolve(exp(-tau), kern[b], 'same_edge')
       chi2 = sum_p ivar (data - m)^2,  n4/n5 = #{(data - m) inv_noise > 4/5}
 
+  with an optional problem axis: given ``prob`` (B,), sample b reads
+  problem prob[b]'s d0, cw, data, ivar and inv_noise out of stacked
+  (Q, T, P) and (Q, P) tables (the fleet's stacked problems, one launch
+  for all of them).
+
 ``H_t`` is chosen per transition by the int32 mode table (the JAX
 package's static per-transition choice in ``_accum_tau``):
 :data:`MODE_HARRIS` the plain Harris expansion, :data:`MODE_WINDOWED` the
@@ -100,9 +105,9 @@ def _fused_fn():
 
     fn = load().lib.mcalf_fused_loglike
     fn.restype = ctypes.c_int
-    # 16 pointers, B, T, P, half, tile, cluster, smem, kern_stride,
-    # cont_stride, asymm, damped, stream
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    # 17 pointers (prob may be null), B, T, P, half, tile, cluster, smem,
+    # kern_stride, cont_stride, asymm, damped, stream
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     return fn
 
 
@@ -300,7 +305,7 @@ def _check_cuda_inputs(B, T, P, named, modes) -> None:
     for name in ("gain", "av", "dnu"):
         if shapes[name].shape != (B, T):
             raise ValueError(f"{name}: shape {tuple(shapes[name].shape)} != {(B, T)}")
-    if shapes["d0"].shape != (T, P) or shapes["tmin"].shape != (T,) or modes.shape != (T,):
+    if shapes["d0"].shape[-2:] != (T, P) or shapes["tmin"].shape != (T,) or modes.shape != (T,):
         raise ValueError(
             f"d0 {tuple(shapes['d0'].shape)} / tmin {tuple(shapes['tmin'].shape)} "
             f"/ modes {tuple(modes.shape)} do not match T={T}, P={P}"
@@ -362,6 +367,8 @@ def voigt_tau(dz, gain, av, dnu, d0, cw, tmin, modes) -> torch.Tensor:
     named = (("dz", dz), ("gain", gain), ("av", av), ("dnu", dnu), ("d0", d0),
              ("cw", cw), ("tmin", tmin))
     _check_cuda_inputs(B, T, P, named, modes)
+    if d0.dim() != 2:
+        raise ValueError(f"d0: shape {tuple(d0.shape)} != {(T, P)}")
     damped = _any_damped(modes)
     index = dz.device.index if dz.device.index is not None else torch.cuda.current_device()
     geo = tau_geometry(B, T, P, damped, sms=_sm_count(index))
@@ -389,12 +396,40 @@ def _launch_tau(named, modes, tau, damped: bool, geo: TauGeometry) -> None:
         raise RuntimeError(f"voigt_tau kernel launch failed: CUDA error {err}")
 
 
+def _runs(prob: torch.Tensor):
+    """(start, stop, problem) of each run of equal consecutive entries."""
+    p = prob.tolist()
+    if not p:
+        return []
+    starts = [0] + [i for i in range(1, len(p)) if p[i] != p[i - 1]]
+    return [(a, b, p[a]) for a, b in zip(starts, starts[1:] + [len(p)])]
+
+
 def fused_loglike_plain(
     dz, gain, av, dnu, d0, cw, data, ivar, inv_noise, kern, cont, tmin, modes,
-    *, half: int, asymm: bool,
+    *, half: int, asymm: bool, prob=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the fused kernel (same arguments, same
-    math): :func:`voigt_tau_plain`, then the likelihood tail."""
+    math): :func:`voigt_tau_plain`, then the likelihood tail.
+
+    With ``prob``, each run of consecutive samples of one problem is one
+    call on that problem's tables.  On the CPU two of the ops below give an
+    element bits that depend on the rest of the batch (the grouped
+    ``conv1d`` takes another algorithm for one group than for many), so a
+    run is evaluated exactly as a batch of that problem alone would be: a
+    fleet's block of B rows of problem q is the single-problem call's
+    result bit for bit."""
+    if prob is not None:
+        outs = []
+        for a, b, q in _runs(prob):
+            rows = lambda x: x[a:b]
+            per = lambda x: x if x.shape[0] == 1 else x[a:b]
+            outs.append(fused_loglike_plain(
+                rows(dz), rows(gain), rows(av), rows(dnu), d0[q], cw[q], data[q],
+                ivar[q], inv_noise[q], per(kern), per(cont), tmin, modes,
+                half=half, asymm=asymm,
+            ))
+        return tuple(torch.cat(x) for x in zip(*outs))
     B = dz.shape[0]
     P = cw.shape[0]
     tau = voigt_tau_plain(dz, gain, av, dnu, d0, cw, tmin, modes)
@@ -422,22 +457,26 @@ def fused_loglike_plain(
 
 def fused_loglike(
     dz, gain, av, dnu, d0, cw, data, ivar, inv_noise, kern, cont, tmin, modes,
-    *, half: int, asymm: bool,
+    *, half: int, asymm: bool, prob=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused chi^2 and asymmlike counts (n4, n5) for a batch of samples.
 
     dz ... d0, cw, tmin, modes : as for :func:`voigt_tau`.  data, ivar,
     inv_noise : (P,).  kern : (B, K) or (1, K) normalized LSF taps,
     K = 2*half + 1; cont : (B,) or (1,).
+    prob : optional (B,) int32 problem of each sample; d0 is then
+    (Q, T, P) and cw, data, ivar, inv_noise (Q, P), and every entry of
+    prob must lie in [0, Q) (the kernel does not check it: that would cost
+    a device read per call).
     Returns (chi2, n4, n5), each (B,) float32 (n4 = n5 = 0 unless asymm).
     """
     B, T = dz.shape
-    P = cw.shape[0]
+    P = cw.shape[-1]
     geo = fused_geometry(T, P, half)
     if dz.device.type == "cpu":
         return fused_loglike_plain(
             dz, gain, av, dnu, d0, cw, data, ivar, inv_noise, kern, cont,
-            tmin, modes, half=half, asymm=asymm,
+            tmin, modes, half=half, asymm=asymm, prob=prob,
         )
     if dz.device.type != "cuda":
         raise ValueError(f"fused_loglike runs on cpu or cuda, not {dz.device}")
@@ -447,9 +486,20 @@ def fused_loglike(
              ("cw", cw), ("data", data), ("ivar", ivar), ("inv_noise", inv_noise),
              ("kern", kern), ("cont", cont), ("tmin", tmin))
     _check_cuda_inputs(B, T, P, named, modes)
-    for name, x in (("data", data), ("ivar", ivar), ("inv_noise", inv_noise)):
-        if x.shape != (P,):
-            raise ValueError(f"{name}: shape {tuple(x.shape)} != {(P,)}")
+    lead = () if prob is None else (d0.shape[0],)
+    if d0.shape != lead + (T, P):
+        raise ValueError(f"d0: shape {tuple(d0.shape)} != {lead + (T, P)}")
+    for name, x in (("cw", cw), ("data", data), ("ivar", ivar), ("inv_noise", inv_noise)):
+        if x.shape != lead + (P,):
+            raise ValueError(f"{name}: shape {tuple(x.shape)} != {lead + (P,)}")
+    if prob is not None:
+        if prob.device != dz.device or prob.dtype != torch.int32 or not prob.is_contiguous():
+            raise ValueError(f"prob: need a contiguous int32 tensor on {dz.device}, got "
+                             f"{prob.dtype} on {prob.device}")
+        if prob.shape != (B,):
+            raise ValueError(f"prob: shape {tuple(prob.shape)} != {(B,)}")
+        if d0.numel() >= 2**31:
+            raise ValueError(f"d0: {d0.numel()} elements, over the kernel's int32 index")
     if kern.dim() != 2 or kern.shape[1] != K or kern.shape[0] not in (1, B):
         raise ValueError(f"kern: shape {tuple(kern.shape)}, need (B or 1, {K})")
     if cont.dim() != 1 or cont.shape[0] not in (1, B):
@@ -463,6 +513,7 @@ def fused_loglike(
     stream = torch.cuda.current_stream(dz.device).cuda_stream
     err = _fused_fn()(
         *(x.data_ptr() for _, x in named), modes.data_ptr(),
+        None if prob is None else prob.data_ptr(),
         chi2.data_ptr(), n4.data_ptr(), n5.data_ptr(),
         B, T, P, half, geo.tile, geo.cluster, geo.smem,
         K if kern.shape[0] == B else 0,

@@ -11,7 +11,10 @@ All of the JAX runner's fits are here: a single fit with checkpoints
 ladder (``auto_repeats``); seed ensembles merged by birth contours (``[run]
 seeds``); the fixed-k grid (``[run] ncomp_grid``); and several spectra
 (``specfile`` as a list).  What the JAX runner shards over a device mesh
-runs here one fit after another: one card is one device.
+runs here as one fleet on the card (:mod:`mcalf_torch.parallel`): the seeds
+of an ensemble, and the spectra of a list when they stack (no seeds, no
+``ncomp_grid``, not dynamic, no ``auto_repeats``, no checkpoints); a member
+writes the files its solo fit would, byte for byte.
 
 ``[run] device``: ``default`` (or ``cuda``/``cuda:N``) fits on the GPU and
 raises when there is none; ``cpu`` is the explicit CPU choice.  A
@@ -33,6 +36,8 @@ import torch
 from mcalf_torch.atomic import load_atomfile
 from mcalf_torch.io.chains import write_equal_weights, write_stats
 from mcalf_torch.models import AbsorptionModel, make_torch_forward
+from mcalf_torch.models.batched import pad_model_to_npix, stack_problems
+from mcalf_torch.parallel import fit_stacked
 from mcalf_torch.sampler import (
     NSConfig,
     NSResults,
@@ -45,6 +50,7 @@ from mcalf_torch.sampler import (
     posterior_ess,
     resample_equal,
 )
+from mcalf_torch.sampler.nested import unstack_results
 from mcalf_torch.utils.checkpoint import (
     latest_checkpoint,
     load_state,
@@ -301,31 +307,12 @@ def _physical(fwd, samples_u) -> np.ndarray:
     return fwd.cube_to_params(u.to(device)).cpu().numpy().astype(np.float64)
 
 
-def run_fit(
-    configpars: Dict[str, Any],
-    debug: bool = False,
-    model: Optional[AbsorptionModel] = None,
-) -> Tuple[NSResults, str]:
-    """Run the fit and write `.stats` + `_equal_weights.txt`.
-
-    Returns (NSResults as host numpy arrays, chain basename); for a seed
-    ensemble the first is the MergedRun, and for several spectra the return
-    is the list of those pairs, one per spectrum."""
-    specfiles = configpars.get("specfiles") or []
-    if len(specfiles) > 1 and model is None:
-        return _run_spectrum_fleet(configpars, debug=debug)
-
-    if configpars.get("ncomp_grid"):
-        return _run_ncomp_grid(configpars, debug=debug)
-
-    device = resolve_device(configpars)
-
-    if model is None:
-        model = build_model(configpars, debug=debug)
-    fwd = make_torch_forward(model, device, gpriors=model.gpriors is not None)
+def _sampler_configs(configpars, model, device, debug=False):
+    """(SolverPlan, NSConfig, boost NSConfig or None) of a fit of ``model``:
+    the solver's settings, the calibrated default repeats and the
+    label-symmetry gauge fixing."""
     plan = solver_nsconfig(configpars, model.ndim)
-    cfg, resample_S, dynamic = plan.cfg, plan.resample_S, plan.dynamic
-    boost_cfg = plan.boost_config
+    cfg, boost_cfg = plan.cfg, plan.boost_config
     if cfg.num_repeats == 0:
         if transdim_counts_as_difficult(cfg, model):
             cfg = dataclasses.replace(cfg, difficult_model=True)
@@ -355,8 +342,35 @@ def run_fit(
             f"num_repeats={r.num_repeats}, num_delete={r.num_delete}, "
             f"max_samples={cfg.max_samples}, "
             f"precision={cfg.precision_criterion}, ndim={model.ndim}, "
-            f"dynamic={dynamic}"
+            f"dynamic={plan.dynamic}"
         )
+    return plan, cfg, boost_cfg
+
+
+def run_fit(
+    configpars: Dict[str, Any],
+    debug: bool = False,
+    model: Optional[AbsorptionModel] = None,
+) -> Tuple[NSResults, str]:
+    """Run the fit and write `.stats` + `_equal_weights.txt`.
+
+    Returns (NSResults as host numpy arrays, chain basename); for a seed
+    ensemble the first is the MergedRun, and for several spectra the return
+    is the list of those pairs, one per spectrum."""
+    specfiles = configpars.get("specfiles") or []
+    if len(specfiles) > 1 and model is None:
+        return _run_spectrum_fleet(configpars, debug=debug)
+
+    if configpars.get("ncomp_grid"):
+        return _run_ncomp_grid(configpars, debug=debug)
+
+    device = resolve_device(configpars)
+
+    if model is None:
+        model = build_model(configpars, debug=debug)
+    fwd = make_torch_forward(model, device, gpriors=model.gpriors is not None)
+    plan, cfg, boost_cfg = _sampler_configs(configpars, model, device, debug)
+    resample_S, dynamic = plan.resample_S, plan.dynamic
 
     seeds_list = configpars.get("seeds")
     if seeds_list:
@@ -371,7 +385,7 @@ def run_fit(
                 "seeds; the ensemble runs without checkpoints."
             )
         return _run_seed_ensemble(
-            configpars, fwd, cfg, seeds_list, resample_S, device, debug=debug
+            configpars, model, fwd, cfg, seeds_list, resample_S, device, debug=debug
         )
 
     seed = int(configpars.get("seed", 43))
@@ -535,6 +549,24 @@ def run_fit(
         runs = [("", res, cfg)]
     print("Execution time {}".format(datetime.datetime.now() - t0))
 
+    stats_extra = []
+    if auto_repeats:
+        stats_extra.append(
+            f"auto_repeats ladder converged={conv.converged} "
+            f"(rungs {rungs}, final num_repeats={conv.num_repeats})"
+            + ("" if conv.converged else "  ** BUDGET EXHAUSTED **")
+        )
+    base = _write_fit(configpars, fwd, post, runs, plan, cfg, stats_extra, debug)
+    return res, base
+
+
+def _write_fit(configpars, fwd, post, runs, plan, cfg, stats_extra, debug):
+    """The files of one fit: the max_samples warning, the insertion-rank
+    verdict of every run that feeds the evidence (into the .stats file
+    after ``stats_extra``), `.stats` + `_equal_weights.txt` of ``post``,
+    `_dead-birth.txt` where the plan asks for it.  ``runs`` are (tag,
+    NSResults as host numpy arrays, NSConfig).  Returns the chain
+    basename."""
     if any(r.termination_reason != 0 for _, r, _ in runs):
         print(
             "WARNING: sampler hit max_samples before the evidence converged; "
@@ -545,13 +577,7 @@ def run_fit(
     # feeds the evidence, always on: an under-decorrelated run completes
     # silently with a plausible-looking but biased evidence.  The verdict
     # goes to stdout AND into the .stats file as comment lines.
-    stats_extra = []
-    if auto_repeats:
-        stats_extra.append(
-            f"auto_repeats ladder converged={conv.converged} "
-            f"(rungs {rungs}, final num_repeats={conv.num_repeats})"
-            + ("" if conv.converged else "  ** BUDGET EXHAUSTED **")
-        )
+    stats_extra = list(stats_extra)
     for tag, r, run_cfg in runs:
         diag = insertion_rank_test(r, run_cfg)
         line = (
@@ -572,7 +598,7 @@ def run_fit(
 
     os.makedirs(configpars["chaindir"], exist_ok=True)
     base = chain_basename(configpars)
-    _write_chain_files(base, fwd, post, resample_S, stats_extra)
+    _write_chain_files(base, fwd, post, plan.resample_S, stats_extra)
     if plan.write_dead:
         # Dynamic solvers merge base+boost into .stats/_equal_weights, so the
         # dead-birth file carries BOTH passes too: anesthetic reconstructs
@@ -596,7 +622,7 @@ def run_fit(
     # ROADMAP Queue 1.)
 
     print(f"Saved results to {base}_equal_weights.txt")
-    return res, base
+    return base
 
 
 def _write_dead_birth(path, fwd, *runs):
@@ -632,26 +658,31 @@ def _write_chain_files(base, fwd, post, resample_S, extra_lines=()):
     )
 
 
-def _run_seed_ensemble(configpars, fwd, cfg, seeds, resample_S, device, debug=False):
+def _run_seed_ensemble(configpars, model, fwd, cfg, seeds, resample_S, device, debug=False):
     """Seed-ensemble fit through the config surface (``[run] seeds``).
 
-    The same problem is fit once per seed, one fit after another, then the
-    members are birth-contour merged (sampler/merge.py) into ONE evidence
-    with a sqrt(K)-smaller, simulated-weights error bar.  Per-member chain
-    files get a ``_s<seed>`` suffix on the ``chainfmt.format(nfill)`` base;
-    the merged posterior lands under the base name so the analysis/plot
-    phase works unchanged."""
+    The same problem is fit once per seed, all seeds together as one fleet
+    (:func:`mcalf_torch.parallel.fit_stacked`: one fused-kernel launch per
+    slice iteration for every seed), seed s drawing from
+    ``manual_seed(s)``, so each member is bit for bit the solo fit with
+    ``[run] seed = s``; then the members are birth-contour merged
+    (sampler/merge.py) into ONE evidence with a sqrt(K)-smaller,
+    simulated-weights error bar.  Per-member chain files get a ``_s<seed>``
+    suffix on the ``chainfmt.format(nfill)`` base; the merged posterior
+    lands under the base name so the analysis/plot phase works
+    unchanged."""
     t0 = datetime.datetime.now()
-    # (The JAX runner shards the seeds over a device mesh when their count
-    # divides the device count; with one card that is never taken.  The
-    # counterpart belongs to ROADMAP Queue 1's fleet item.)
-    runs = []
-    for s in seeds:
-        gen = torch.Generator(device=device).manual_seed(int(s))
-        res = nested_sample(fwd.loglike_cube, gen, cfg, device).numpy()
-        if debug:
+    spec, stacked = stack_problems(
+        [model] * len(seeds), gpriors=model.gpriors is not None
+    )
+    gens = [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
+    if debug:
+        print(f"[DEBUG]: {len(seeds)} seeds as one fleet on {device}")
+    batched = fit_stacked(spec, stacked, cfg, mesh=[device], generators=gens)
+    runs = [r.numpy() for r in unstack_results(batched)]
+    if debug:
+        for s, res in zip(seeds, runs):
             print(f"[DEBUG]: seed {s}: logZ = {float(res.logz):.3f}")
-        runs.append(res)
     print("Execution time {}".format(datetime.datetime.now() - t0))
 
     merged = merge_results(runs)
@@ -781,15 +812,61 @@ def spectrum_subconfigs(configpars: Dict[str, Any]):
 def _run_spectrum_fleet(configpars, debug=False):
     """Multi-sightline fit through the config surface (``specfile`` list).
 
-    Every spectrum is fit with the same settings, each through the full
-    single-spectrum ``run_fit`` flow, one after another (which also covers
-    dynamic sampling, seed ensembles and checkpoints per spectrum).
-    Returns the list of per-spectrum (results, chain basename) pairs."""
-    # (The JAX runner shards spectra that stack over a device mesh; with one
-    # card that is never taken.  The counterpart belongs to ROADMAP Queue
-    # 1's fleet item.)
+    Every spectrum is fit with the same settings.  When the problems stack
+    (the same structure once padded at the red end to one pixel count) and
+    the fit is a plain one -- no seeds, no ``ncomp_grid``, not dynamic, no
+    ``auto_repeats``, no checkpoints (``[run] checkpoint`` or a
+    ``[pc_settings]`` resume), whose per-spectrum files the fleet would not
+    write -- they run as one fleet (:func:`mcalf_torch.parallel.fit_stacked`),
+    each spectrum on a generator seeded with ``[run] seed`` as its solo fit
+    is; a spectrum on the common grid then writes its solo fit's files byte
+    for byte.  Otherwise each runs through the full single-spectrum
+    ``run_fit`` flow, one after another.  Returns the list of per-spectrum
+    (results, chain basename) pairs."""
+    subs = spectrum_subconfigs(configpars)
+    probe = solver_nsconfig(configpars, 1)
+    auto_repeats = _as_bool(configpars.get("ns_settings", {}).get("auto_repeats", False))
+    plain = not (
+        configpars.get("seeds") or configpars.get("ncomp_grid") or probe.dynamic
+        or auto_repeats or configpars.get("checkpoint")
+        or probe.read_resume or probe.write_resume
+    )
+    if plain:
+        models = [build_model(sub, debug=debug) for sub in subs]
+        npix = max(m.npix for m in models)
+        gpriors = models[0].gpriors is not None
+        try:
+            spec, stacked = stack_problems(
+                [pad_model_to_npix(m, npix) for m in models], gpriors=gpriors
+            )
+        except ValueError as e:
+            print(f"NOTE: spectra do not stack for one fleet ({e}); fitting sequentially.")
+        else:
+            return _fit_spectra_stacked(configpars, subs, models, spec, stacked, debug)
+
     out = []
-    for sub in spectrum_subconfigs(configpars):
+    for sub in subs:
         print(f"--- fitting {sub['specfile']} ---")
         out.append(run_fit(sub, debug=debug))
+    return out
+
+
+def _fit_spectra_stacked(configpars, subs, models, spec, stacked, debug):
+    """The spectra of ``subs`` (their models, stacked) as one fleet, then
+    each spectrum's files as its solo fit writes them."""
+    device = resolve_device(configpars)
+    plan, cfg, _ = _sampler_configs(configpars, models[0], device, debug)
+    seed = int(configpars.get("seed", 43))
+    for sub in subs:
+        print(f"--- fitting {sub['specfile']} (one fleet of {len(subs)} spectra on {device}) ---")
+    gens = [torch.Generator(device=device).manual_seed(seed) for _ in subs]
+    t0 = datetime.datetime.now()
+    batched = fit_stacked(spec, stacked, cfg, mesh=[device], generators=gens)
+    print("Execution time {}".format(datetime.datetime.now() - t0))
+    out = []
+    for sub, m, res in zip(subs, models, unstack_results(batched)):
+        res = res.numpy()
+        fwd = make_torch_forward(m, device, gpriors=m.gpriors is not None)
+        base = _write_fit(sub, fwd, res, [("", res, cfg)], plan, cfg, [], debug)
+        out.append((res, base))
     return out

@@ -19,10 +19,15 @@ from mcalf_torch.sampler.nested import (
     init_state,
     is_done,
     nested_sample,
+    nested_sample_stacked,
     nsstate_from_numpy,
     nsstate_to_numpy,
     run_steps,
     slice_chains,
+    stack_results,
+    stack_states,
+    unstack_results,
+    unstack_states,
 )
 from mcalf_torch.sampler.repeats import (
     ConvergedRun,
@@ -44,10 +49,15 @@ __all__ = [
     "init_state",
     "is_done",
     "nested_sample",
+    "nested_sample_stacked",
     "nsstate_from_numpy",
     "nsstate_to_numpy",
     "run_steps",
     "slice_chains",
+    "stack_results",
+    "stack_states",
+    "unstack_results",
+    "unstack_states",
     "equal_weights_matrix",
     "posterior_stats",
     "resample_equal",

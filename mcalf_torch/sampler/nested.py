@@ -22,6 +22,14 @@ comes from an explicit ``torch.Generator`` (the numbers are therefore not
 ``jax.random``'s), the loops are eager Python loops (one host
 synchronisation per slice iteration, for the loop condition), and the
 state carries its scalar counters as Python ints.
+
+Several independent problems run together as a fleet
+(:func:`nested_sample_stacked`, the JAX package's ``vmap``/``shard_map``
+over problems): their slice chains are stacked, so every slice iteration
+is one likelihood call for all of them, while each problem keeps its own
+generator, termination and chunk schedule; problem q ends bit for bit where
+:func:`nested_sample` alone would take it.  :func:`nested_sample` is that
+fleet with one problem.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,10 +52,15 @@ __all__ = [
     "init_state",
     "is_done",
     "nested_sample",
+    "nested_sample_stacked",
     "nsstate_from_numpy",
     "nsstate_to_numpy",
     "run_steps",
     "slice_chains",
+    "stack_results",
+    "stack_states",
+    "unstack_results",
+    "unstack_states",
     "DEFAULT_CHUNK_STEPS",
 ]
 
@@ -161,12 +174,23 @@ def init_state(
 ) -> NSState:
     """Draw the initial live-point set and empty dead buffers."""
     cfg = config.resolved()
+    live_u = _draw_live(gen, cfg, device)
+    return _fresh_state(live_u, loglike_batch(live_u), cfg)
+
+
+def _draw_live(gen, cfg: NSConfig, device) -> torch.Tensor:
+    return _canon_live(
+        torch.rand((cfg.nlive, cfg.ndim), generator=gen, dtype=torch.float32,
+                   device=device),
+        cfg,
+    )
+
+
+def _fresh_state(live_u, live_logl, cfg: NSConfig) -> NSState:
+    """The state at step 0 around a drawn live set and its likelihoods."""
     ndim, nlive, cap = cfg.ndim, cfg.nlive, int(cfg.max_samples)
     f32 = torch.float32
-    live_u = _canon_live(
-        torch.rand((nlive, ndim), generator=gen, dtype=f32, device=device), cfg
-    )
-    live_logl = loglike_batch(live_u)
+    device = live_u.device
     return NSState(
         live_u=live_u,
         live_logl=live_logl,
@@ -205,11 +229,11 @@ def nsstate_from_numpy(state: Any, device: "torch.device | str") -> NSState:
         dead_logl=t("dead_logl", f32),
         dead_logw=t("dead_logw", f32),
         dead_birth=t("dead_birth", f32),
-        n_dead=int(np.asarray(d["n_dead"])),
+        n_dead=_count(d["n_dead"]),
         logx=t("logx", f32),
         logz=t("logz", f32),
-        n_like=int(np.asarray(d["n_like"])),
-        step=int(np.asarray(d["step"])),
+        n_like=_count(d["n_like"]),
+        step=_count(d["step"]),
         dead_rank=t("dead_rank", torch.int32),
         live_cluster=t("live_cluster", torch.int64),
         rng=(
@@ -217,6 +241,57 @@ def nsstate_from_numpy(state: Any, device: "torch.device | str") -> NSState:
             if d.get("rng") is not None else None
         ),
     )
+
+
+def _count(v):
+    """A counter field: an int, or a tuple of ints on a stacked state."""
+    a = np.asarray(v)
+    return int(a) if a.ndim == 0 else tuple(int(x) for x in a)
+
+
+_COUNTERS = ("n_dead", "n_like", "step")
+
+
+def stack_states(states: Sequence[NSState]) -> NSState:
+    """Several problems' states as one :class:`NSState` with a leading
+    problem axis: tensors stacked, counters as tuples of ints, ``rng`` as a
+    (Q, bytes) tensor (None unless every state carries one).  Saved and
+    loaded by :mod:`mcalf_torch.utils.checkpoint` as any state."""
+    out = {}
+    for f in NSState._fields:
+        vals = [getattr(s, f) for s in states]
+        if f in _COUNTERS:
+            out[f] = tuple(int(v) for v in vals)
+        elif f == "rng":
+            out[f] = None if any(v is None for v in vals) else torch.stack(vals)
+        else:
+            out[f] = torch.stack(vals)
+    return NSState(**out)
+
+
+def unstack_states(stacked: NSState) -> List[NSState]:
+    """The per-problem states of :func:`stack_states`'s result."""
+    return [
+        NSState(**{f: None if v is None else v[q] for f, v in stacked._asdict().items()})
+        for q in range(stacked.live_u.shape[0])
+    ]
+
+
+def stack_results(results: Sequence[NSResults]) -> NSResults:
+    """Several problems' results with a leading problem axis (tensors
+    stacked, integer fields as int64 numpy arrays)."""
+    return NSResults(*(
+        torch.stack(vals) if torch.is_tensor(vals[0]) else np.asarray(vals, np.int64)
+        for vals in zip(*results)
+    ))
+
+
+def unstack_results(stacked: NSResults) -> List[NSResults]:
+    """Problem by problem, the results of :func:`stack_results`."""
+    return [
+        NSResults(*(x[q] if torch.is_tensor(x) else int(x[q]) for x in stacked))
+        for q in range(len(stacked.n_dead))
+    ]
 
 
 def nsstate_to_numpy(state: NSState) -> dict:
@@ -443,37 +518,81 @@ def slice_chains(
     exhausts ``max_shrink`` proposals, starts its next pass at once with
     its next pooled direction.  The loop runs until every chain has made
     ``num_repeats`` passes, with a hard ceiling of num_repeats * max_shrink
-    iterations."""
+    iterations.  (:func:`_slice_stacked` with one problem.)"""
+    _check_bracket(cfg)
+    B = u_start.shape[0]
+    pool_d = _direction_pool(gen, surv_u, surv_cluster, cfg, B)
+    u, logl, n_like = _slice_stacked(
+        lambda u, prob: loglike_batch(u), [gen], u_start[None], logl_start[None],
+        pool_d[None], torch.as_tensor(lstar).reshape(1), cfg, [0],
+    )
+    return u[0], logl[0], n_like[0]
+
+
+def _check_bracket(cfg: NSConfig) -> None:
     if cfg.bracket != "chord":
         raise NotImplementedError(
             f"bracket={cfg.bracket!r} is not ported (only the cube chord); "
             "ROADMAP Queue 1: stepout bracket and reference_style"
         )
-    B = u_start.shape[0]
+
+
+def _slice_stacked(loglike_rows, gens, u_start, logl_start, pools, lstar, cfg, probs):
+    """:func:`slice_chains` for Q problems at once: chains (Q, B, ndim) from
+    ``u_start`` with ``logl_start`` (Q, B), directions ``pools`` (Q,
+    num_repeats, B, ndim), constraints ``lstar`` (Q,), problem q's draws
+    from ``gens[q]``.  ``loglike_rows(u, prob)`` takes (N, ndim) points
+    and their (N,) int32 problem indices (``probs[q]`` for stacked problem
+    q), so each iteration is one likelihood call over the rows of every
+    problem whose chains still run.  Problem q's chains follow exactly
+    the sequence of states and draws that :func:`slice_chains` gives it
+    alone: the loop condition and the uniform draw are per problem, and
+    the rows of a problem that is done are left out of the batch.
+    Returns (u, logl, n_evals per problem)."""
+    _check_bracket(cfg)
+    Q, B = logl_start.shape
     dev = u_start.device
     nrep = int(cfg.num_repeats)
     total_cap = nrep * int(cfg.max_shrink)
-    pool_d = _direction_pool(gen, surv_u, surv_cluster, cfg, B)
-    arange_b = torch.arange(B, device=dev)
+    arange_q = torch.arange(Q, device=dev)[:, None]
+    arange_b = torch.arange(B, device=dev)[None, :]
+    lstar = lstar[:, None]
+    all_rows = torch.tensor(probs, dtype=torch.int32, device=dev).repeat_interleave(B)
 
     u_cur, logl_cur = u_start, logl_start
-    d = pool_d[0]
+    d = pools[:, 0]
     lo, hi = _bracket(u_cur, d)
-    it_pass = torch.zeros((B,), dtype=torch.int32, device=dev)
-    passes = torch.zeros((B,), dtype=torch.int32, device=dev)
-    n_like = 0
+    it_pass = torch.zeros((Q, B), dtype=torch.int32, device=dev)
+    passes = torch.zeros((Q, B), dtype=torch.int32, device=dev)
+    r = torch.zeros((Q, B), dtype=torch.float32, device=dev)
+    n_like = [0] * Q
+    live = list(range(Q))
     it_total = 0
-    while it_total < total_cap and bool((passes < nrep).any()):
+    # one host read per iteration: which problems still have a pass to make
+    while it_total < total_cap:
         active = passes < nrep
-        t = lo + torch.rand((B,), generator=gen, dtype=torch.float32, device=dev) * (
-            hi - lo
-        )
-        u_prop = u_cur + t[:, None] * d
-        inside = ((u_prop >= 0.0) & (u_prop <= 1.0)).all(dim=1)
-        ll_prop = loglike_batch(torch.clamp(u_prop, 0.0, 1.0))
+        running = active.any(dim=1).tolist()
+        if not all(running[q] for q in live):
+            # a problem whose chains are all done stays done
+            live = [q for q in live if running[q]]
+            if not live:
+                break
+            idx = torch.tensor(live, device=dev)
+            rows = all_rows.reshape(Q, B)[idx].reshape(-1)
+        for q in live:
+            torch.rand((B,), generator=gens[q], dtype=torch.float32, device=dev, out=r[q])
+        t = lo + r * (hi - lo)
+        u_prop = u_cur + t[..., None] * d
+        inside = ((u_prop >= 0.0) & (u_prop <= 1.0)).all(dim=-1)
+        u_eval = torch.clamp(u_prop, 0.0, 1.0)
+        if len(live) == Q:
+            ll_prop = loglike_rows(u_eval.reshape(Q * B, -1), all_rows).reshape(Q, B)
+        else:
+            ll_prop = torch.full((Q, B), -math.inf, dtype=torch.float32, device=dev)
+            ll_prop[idx] = loglike_rows(u_eval[idx].reshape(len(live) * B, -1), rows).reshape(-1, B)
         ll_prop = torch.where(inside, ll_prop, -math.inf)
         acc = (ll_prop > lstar) & active
-        u_cur = torch.where(acc[:, None], u_prop, u_cur)
+        u_cur = torch.where(acc[..., None], u_prop, u_cur)
         logl_cur = torch.where(acc, ll_prop, logl_cur)
         # Rejection shrinks the bracket toward the (unchanged) current point;
         # a chain that exhausts max_shrink proposals keeps its point.
@@ -485,19 +604,40 @@ def slice_chains(
         fin = acc | exhausted
         passes = passes + fin.to(torch.int32)
         need = fin & (passes < nrep)
-        d_new = pool_d[torch.clamp(passes, max=nrep - 1).long(), arange_b]
+        d_new = pools[arange_q, torch.clamp(passes, max=nrep - 1).long(), arange_b]
         lo_new, hi_new = _bracket(u_cur, d_new)
-        d = torch.where(need[:, None], d_new, d)
+        d = torch.where(need[..., None], d_new, d)
         lo = torch.where(need, lo_new, lo)
         hi = torch.where(need, hi_new, hi)
         it_pass = torch.where(fin, 0, it_pass)
-        n_like += B
+        for q in live:
+            n_like[q] += B
         it_total += 1
     return u_cur, logl_cur, n_like
 
 
-def _step(loglike_batch, s: NSState, cfg: NSConfig, gen, cum_dlogx) -> NSState:
-    """One outer step: delete the B worst, replace them by slice sampling."""
+class _Head(NamedTuple):
+    """One problem's outer step up to its slice chains (:func:`_head`)."""
+
+    worst: torch.Tensor
+    lstar: torch.Tensor
+    logx: torch.Tensor
+    logz: torch.Tensor
+    dead_u: torch.Tensor
+    dead_logl: torch.Tensor
+    dead_logw: torch.Tensor
+    dead_birth: torch.Tensor
+    surv_logl: torch.Tensor
+    surv_cluster: torch.Tensor
+    start_idx: torch.Tensor
+    u_start: torch.Tensor
+    logl_start: torch.Tensor
+    pool: torch.Tensor
+
+
+def _head(s: NSState, cfg: NSConfig, gen, cum_dlogx) -> _Head:
+    """Delete the B worst live points and draw what the replacements need:
+    start survivors and the direction pool."""
     nlive, B = cfg.nlive, cfg.num_delete
     dev = s.live_u.device
 
@@ -538,17 +678,25 @@ def _step(loglike_batch, s: NSState, cfg: NSConfig, gen, cum_dlogx) -> NSState:
         tiled = torch.arange(nsurv, device=dev).repeat(-(-B // nsurv))
         perm = torch.randperm(tiled.numel(), generator=gen, device=dev)
         start_idx = tiled[perm][:B]
-    u_cur = surv_u[start_idx]
-    logl_cur = surv_logl[start_idx]
     surv_cluster = s.live_cluster[surv]
-    u_new, logl_new, n_evals = slice_chains(
-        loglike_batch, gen, u_cur, logl_cur, surv_u, surv_logl, lstar, cfg,
-        surv_cluster=surv_cluster,
+    return _Head(
+        worst=worst, lstar=lstar, logx=logx_seq[-1], logz=logz, dead_u=dead_u,
+        dead_logl=dead_logl, dead_logw=dead_logw, dead_birth=dead_birth,
+        surv_logl=surv_logl, surv_cluster=surv_cluster, start_idx=start_idx,
+        u_start=surv_u[start_idx], logl_start=surv_logl[start_idx],
+        pool=_direction_pool(gen, surv_u, surv_cluster, cfg, B),
     )
 
+
+def _tail(s: NSState, h: _Head, u_new, logl_new, n_evals: int, cfg: NSConfig, gen) -> NSState:
+    """Insertion ranks of the replacements and the rebuilt live set."""
+    B = cfg.num_delete
+    dev = s.live_u.device
+    nd = s.n_dead
+
     # ---- insertion ranks among the survivors, ties broken at random ------
-    nless = torch.sum(surv_logl[None, :] < logl_new[:, None], dim=1)
-    nties = torch.sum(surv_logl[None, :] == logl_new[:, None], dim=1)
+    nless = torch.sum(h.surv_logl[None, :] < logl_new[:, None], dim=1)
+    nties = torch.sum(h.surv_logl[None, :] == logl_new[:, None], dim=1)
     tie_pos = torch.floor(
         torch.rand((B,), generator=gen, dtype=torch.float32, device=dev)
         * (nties + 1).to(torch.float32)
@@ -559,33 +707,60 @@ def _step(loglike_batch, s: NSState, cfg: NSConfig, gen, cum_dlogx) -> NSState:
 
     # ---- rebuild the live set (gauge-fixed) -------------------------------
     live_u = s.live_u.clone()
-    live_u[worst] = u_new
+    live_u[h.worst] = u_new
     live_u = _canon_live(live_u, cfg)
     live_logl = s.live_logl.clone()
-    live_logl[worst] = logl_new
+    live_logl[h.worst] = logl_new
     live_birth = s.live_birth.clone()
-    live_birth[worst] = lstar
+    live_birth[h.worst] = h.lstar
     # A replacement inherits its start survivor's cluster until the next
     # host re-clustering.
     live_cluster = s.live_cluster.clone()
-    live_cluster[worst] = surv_cluster[start_idx]
+    live_cluster[h.worst] = h.surv_cluster[h.start_idx]
 
     return NSState(
         live_u=live_u,
         live_logl=live_logl,
         live_birth=live_birth,
-        dead_u=dead_u,
-        dead_logl=dead_logl,
-        dead_logw=dead_logw,
-        dead_birth=dead_birth,
+        dead_u=h.dead_u,
+        dead_logl=h.dead_logl,
+        dead_logw=h.dead_logw,
+        dead_birth=h.dead_birth,
         n_dead=nd + B,
-        logx=logx_seq[-1],
-        logz=logz,
+        logx=h.logx,
+        logz=h.logz,
         n_like=s.n_like + n_evals,
         step=s.step + 1,
         dead_rank=dead_rank,
         live_cluster=live_cluster,
     )
+
+
+def _steps(loglike_rows, states, gens, probs, cfg: NSConfig, cum_dlogx):
+    """One outer step of each of several problems: each problem's head on
+    its own generator, their slice chains stacked, each problem's tail.
+    Problem q's new state is the one its step alone would give."""
+    heads = [_head(s, cfg, g, cum_dlogx) for s, g in zip(states, gens)]
+    u_new, logl_new, n_evals = _slice_stacked(
+        loglike_rows, gens,
+        torch.stack([h.u_start for h in heads]),
+        torch.stack([h.logl_start for h in heads]),
+        torch.stack([h.pool for h in heads]),
+        torch.stack([h.lstar for h in heads]),
+        cfg, probs,
+    )
+    return [
+        _tail(s, h, u_new[i], logl_new[i], n_evals[i], cfg, g)
+        for i, (s, h, g) in enumerate(zip(states, heads, gens))
+    ]
+
+
+def _cum_dlogx(cfg: NSConfig, device) -> torch.Tensor:
+    # Sequential shrinkage of a batch of B deletions: d ln X_j = -1/(nlive-j).
+    dlogx = -1.0 / (
+        cfg.nlive - torch.arange(cfg.num_delete, dtype=torch.float32, device=device)
+    )
+    return torch.cumsum(dlogx, dim=0)
 
 
 def run_steps(
@@ -594,16 +769,12 @@ def run_steps(
 ) -> NSState:
     """Advance until termination or ``num_steps`` further outer steps."""
     cfg = config.resolved()
-    nlive, B = cfg.nlive, cfg.num_delete
-    # Sequential shrinkage of a batch of B deletions: d ln X_j = -1/(nlive-j).
-    dlogx = -1.0 / (
-        nlive - torch.arange(B, dtype=torch.float32, device=state.live_u.device)
-    )
-    cum_dlogx = torch.cumsum(dlogx, dim=0)
+    cum_dlogx = _cum_dlogx(cfg, state.live_u.device)
+    ll = lambda u, prob: loglike_batch(u)
     for _ in range(int(num_steps)):
         if not _not_done(state, cfg):
             break
-        state = _step(loglike_batch, state, cfg, gen, cum_dlogx)
+        state = _steps(ll, [state], [gen], [0], cfg, cum_dlogx)[0]
     return state
 
 
@@ -634,9 +805,13 @@ def finalize(final: NSState, config: NSConfig) -> NSResults:
     logw = torch.where(valid, logw, -math.inf)
     logl_safe = torch.where(valid, logl, 0.0)
     log_post = logw + torch.where(valid, logl, -math.inf) - logz
-    # Information H = sum p_i ln L_i - ln Z -> logzerr = sqrt(H / nlive)
+    # Information H = sum p_i ln L_i - ln Z -> logzerr = sqrt(H / nlive),
+    # with ln L_max taken out of both terms first: at |ln L| ~ 1e5 the two
+    # float32 terms are equal to within their rounding and H would cancel
+    # to <= 0.
+    lmax = torch.max(torch.where(valid, logl, -math.inf))
     p = torch.exp(log_post)
-    h = torch.sum(torch.where(valid, p * logl_safe, 0.0)) - logz
+    h = torch.sum(torch.where(valid, p * (logl_safe - lmax), 0.0)) - (logz - lmax)
     logzerr = torch.sqrt(torch.clamp(h, min=0.0) / nlive)
     converged = bool(
         _remaining_logz(final, nlive) - logz
@@ -674,7 +849,9 @@ def _restore_generator(gen: torch.Generator, rng: torch.Tensor) -> None:
             f"{gen.device.type} generator ({gen.get_state().numel()} bytes): a "
             "sampler state resumes only on the device type it was saved on"
         )
-    gen.set_state(rng.to(torch.uint8).cpu())
+    # a copy: set_state reads a row of a stacked state's (Q, bytes) tensor
+    # from the start of its storage
+    gen.set_state(rng.to(torch.uint8).cpu().clone())
 
 
 def nested_sample(
@@ -712,23 +889,92 @@ def nested_sample(
 
     Returns NSResults (tensors on ``device``; ``.numpy()`` copies them to
     the host), or (NSResults, NSState) when ``return_state``.
+    (:func:`nested_sample_stacked` with one problem.)
     """
     cfg = config.resolved()
-    if state is None:
-        state = init_state(loglike_batch, gen, cfg, device)
-    elif state.rng is not None:
-        _restore_generator(gen, state.rng)
-    # A state past step 0 has its 8-step probe behind it.
-    first = chunk_steps is None and state.step == 0
+    [final] = nested_sample_stacked(
+        lambda u, prob: loglike_batch(u), [gen], cfg, device,
+        states=None if state is None else [state],
+        chunk_steps=chunk_steps,
+        on_chunk=None if on_chunk is None else (lambda states: on_chunk(states[0])),
+    )
+    results = finalize(final, cfg)
+    return (results, final) if return_state else results
+
+
+def nested_sample_stacked(
+    loglike_rows: Callable,
+    gens: Sequence[torch.Generator],
+    config: NSConfig,
+    device: "torch.device | str",
+    states: Optional[Sequence[NSState]] = None,
+    chunk_steps: Optional[int] = None,
+    on_chunk: Optional[Callable[[List[NSState]], None]] = None,
+) -> List[NSState]:
+    """Run Q independent nested-sampling problems together, one generator
+    each, and return their final states.
+
+    Every outer step stacks the slice chains of all problems still running
+    (:func:`_slice_stacked`), so a slice iteration is one call of
+    ``loglike_rows(u, prob)`` -- (N, ndim) unit-cube points and their (N,)
+    int32 problem indices -- for every problem at once.  Each problem keeps
+    its own termination check, its own chunk schedule and re-clustering (as
+    :func:`nested_sample`'s), and its own draws, in the order its solo run
+    makes them: problem q ends in the state ``nested_sample`` gives it with
+    generator ``gens[q]``, whatever the other problems do.  A problem that
+    is done leaves the stack.
+
+    ``states``: resume from these per-problem states (each generator set to
+    its state's ``rng`` where it carries one).  ``on_chunk(states)``: called
+    with the list of every problem's state whenever no problem is inside a
+    chunk (all at a boundary or done), so the list can be saved and
+    resumed."""
+    cfg = config.resolved()
+    Q = len(gens)
+    if states is None:
+        live_u = [_draw_live(g, cfg, device) for g in gens]
+        rows = torch.arange(Q, dtype=torch.int32, device=device).repeat_interleave(cfg.nlive)
+        live_logl = loglike_rows(torch.cat(live_u), rows).reshape(Q, cfg.nlive)
+        states = [_fresh_state(u, l, cfg) for u, l in zip(live_u, live_logl)]
+    else:
+        states = list(states)
+        for s, g in zip(states, gens):
+            if s.rng is not None:
+                _restore_generator(g, s.rng)
+    if len(states) != Q:
+        raise ValueError(f"{len(states)} states for {Q} generators")
+    cum_dlogx = _cum_dlogx(cfg, states[0].live_u.device)
     chunk = DEFAULT_CHUNK_STEPS if chunk_steps is None else int(chunk_steps)
-    # The host touches the run only here, between chunks.
-    while not is_done(state, cfg):
-        state = _recluster(state, cfg)
-        steps = _PROBE_STEPS if first else chunk
-        first = False
-        state = run_steps(loglike_batch, state, cfg, steps, gen)
-        state = state._replace(rng=gen.get_state())
-        if on_chunk is not None:
-            on_chunk(state)
-    results = finalize(state, cfg)
-    return (results, state) if return_state else results
+    # A state past step 0 has its 8-step probe behind it.
+    first = [chunk_steps is None and s.step == 0 for s in states]
+    left = [None] * Q  # outer steps left in each problem's chunk, None between chunks
+    done = [False] * Q
+    # The host touches a run only here, between chunks.
+    while True:
+        for q in range(Q):
+            if left[q] is None and not done[q]:
+                if is_done(states[q], cfg):
+                    done[q] = True
+                    continue
+                states[q] = _recluster(states[q], cfg)
+                left[q] = _PROBE_STEPS if first[q] else chunk
+                first[q] = False
+        inside = [q for q in range(Q) if left[q] is not None]
+        if not inside:
+            break
+        stepping = [q for q in inside if left[q] > 0 and _not_done(states[q], cfg)]
+        if stepping:
+            new = _steps(loglike_rows, [states[q] for q in stepping],
+                         [gens[q] for q in stepping], stepping, cfg, cum_dlogx)
+            for q, s in zip(stepping, new):
+                states[q] = s
+                left[q] -= 1
+        ended = [q for q in inside if q not in stepping or left[q] == 0]
+        for q in ended:  # these problems' chunks end
+            states[q] = states[q]._replace(rng=gens[q].get_state())
+            left[q] = None
+        if on_chunk is not None and ended and all(x is None for x in left):
+            on_chunk(list(states))
+    return states
+
+

@@ -9,7 +9,10 @@ generator the caller passes).
 
 The port's own checkpoints also hold ``rng``, the run's ``torch.Generator``
 state at the chunk boundary, so a resumed run draws the numbers the
-uninterrupted run would have drawn.  A CPU generator's state and a CUDA
+uninterrupted run would have drawn.  A fleet's state
+(:func:`mcalf_torch.sampler.nested.stack_states`: a leading problem axis,
+the counters as tuples, ``rng`` one row per problem's generator) is saved
+and loaded by the same two functions.  A CPU generator's state and a CUDA
 generator's are different things: the fingerprint records the generator's
 device type, and a checkpoint written on one is refused on the other.
 """
@@ -121,9 +124,9 @@ def load_state(
     # Fields a checkpoint may lack get their init_state() defaults, so fits
     # in flight survive an upgrade: dead_rank is diagnostic (-1 = unrecorded).
     if "dead_rank" not in fields:
-        fields["dead_rank"] = np.full((fields["dead_logl"].shape[0],), -1, np.int32)
+        fields["dead_rank"] = np.full(fields["dead_logl"].shape, -1, np.int32)
     if "live_cluster" not in fields:
-        fields["live_cluster"] = np.zeros((fields["live_logl"].shape[0],), np.int32)
+        fields["live_cluster"] = np.zeros(fields["live_logl"].shape, np.int32)
     return nsstate_from_numpy(fields, device)
 
 

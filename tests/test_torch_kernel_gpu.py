@@ -317,3 +317,93 @@ def test_occupancy_at_the_production_batch(any_fwd):
     assert 100 * g.cluster >= 132
     assert ctas_per_sm * g.threads // 32 >= 16
     assert clusters >= 1
+
+
+# ---- the problem axis (stacked problems, one launch) ------------------------
+
+def _stacked_pair():
+    """Two different problems stacked on the card: the flagship, and its
+    model on a shorter range padded to the same 1999 pixels."""
+    from mcalf_torch.models.batched import pad_model_to_npix, stack_problems
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = str(TESTDATA / "civ_mock_spec_multicomp.txt")
+    full = AbsorptionModel.from_file(spec, **MODELS["flagship"])
+    short = AbsorptionModel.from_file(spec, **dict(MODELS["flagship"], fitrange=[(6182.0, 6216.0)]))
+    models = [full, pad_model_to_npix(short, full.npix)]
+    s, stacked = stack_problems(models)
+    return tm.make_stacked_forward(s, stacked, "cuda"), [make_torch_forward(m, "cuda") for m in models]
+
+
+@pytest.mark.parametrize("B", (100, 37, 1))
+def test_stacked_kernel_matches_plain_and_single_rows(B):
+    sf, solo = _stacked_pair()
+    s = sf.static
+    u = torch.from_numpy(
+        np.random.default_rng(B).uniform(0.02, 0.98, (2 * B, s.ndim)).astype(np.float32)
+    ).cuda()
+    prob = (torch.arange(2 * B, device="cuda") % 2).to(torch.int32)
+    c = tm.row_consts(sf.consts(), prob)
+    dz = (u[:, c["u_zidx"]] - 0.5) * c["zspan"]
+    p = tm.cube_to_params_core(u, c)
+    args = tm.fused_args(p, c, s, dz=dz, prob=prob)
+    kw = dict(half=s.half, asymm=True, prob=prob)
+    before = voigt_cuda.launches
+    k = voigt_cuda.fused_loglike(*args, **kw)
+    assert voigt_cuda.launches == before + 1
+    q = voigt_cuda.fused_loglike_plain(*args, **kw)
+    np.testing.assert_allclose(k[0].cpu().numpy(), q[0].cpu().numpy(), rtol=1e-5, atol=0.1)
+    lk = tm.loglike_from_fused(p, c, s, *k).cpu().numpy()
+    lq = tm.loglike_from_fused(p, c, s, *q).cpu().numpy()
+    assert np.array_equal(np.isfinite(lk), np.isfinite(lq))
+    fin = np.isfinite(lk)
+    np.testing.assert_allclose(lk[fin], lq[fin], rtol=1e-5, atol=0.05)
+    # each row is the single-problem launch's, bit for bit
+    for i in range(2):
+        rows = prob == i
+        one = solo[i].loglike_cube(u[rows])
+        assert torch.equal(sf.loglike_cube(u, prob)[rows], one)
+
+
+def test_stacked_kernel_wrapper_validation():
+    sf, _ = _stacked_pair()
+    s = sf.static
+    u = torch.rand((4, s.ndim), device="cuda")
+    prob = torch.tensor([0, 1, 0, 1], device="cuda", dtype=torch.int32)
+    c = tm.row_consts(sf.consts(), prob)
+    args = tm.fused_args(tm.cube_to_params_core(u, c), c, s, prob=prob)
+    kw = dict(half=s.half, asymm=False)
+    with pytest.raises(ValueError, match="prob: need a contiguous int32"):
+        voigt_cuda.fused_loglike(*args, **kw, prob=prob.long())
+    with pytest.raises(ValueError, match=r"prob: shape \(3,\)"):
+        voigt_cuda.fused_loglike(*args, **kw, prob=prob[:3].contiguous())
+    with pytest.raises(ValueError, match="d0: shape"):
+        voigt_cuda.fused_loglike(*args, **kw)  # stacked tables without prob
+
+
+def test_fleet_member_is_the_solo_fit_on_the_card():
+    from mcalf_torch.models.batched import stack_problems
+    from mcalf_torch.parallel import fit_stacked
+    from mcalf_torch.sampler import NSConfig, nested_sample
+    from mcalf_torch.sampler.nested import unstack_results
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model = AbsorptionModel.from_file(
+        str(TESTDATA / "civ_mock_spec.txt"), **dict(_CIV, ncomp=(1, 1), brange=[10.0, 40.0]))
+    cfg = NSConfig(ndim=4, nlive=40, num_repeats=4, max_samples=1000)
+    gens = [torch.Generator(device="cuda").manual_seed(s) for s in (1, 2, 3)]
+    before = voigt_cuda.launches
+    res = fit_stacked(*stack_problems([model] * 3), cfg, mesh=["cuda"], generators=gens)
+    fleet_launches = voigt_cuda.launches - before
+    fwd = make_torch_forward(model, "cuda")
+    solo_launches = 0
+    for s, member in zip((1, 2, 3), unstack_results(res)):
+        before = voigt_cuda.launches
+        one = nested_sample(fwd.loglike_cube, torch.Generator(device="cuda").manual_seed(s), cfg, "cuda")
+        solo_launches = max(solo_launches, voigt_cuda.launches - before)
+        assert float(member.logz) == float(one.logz) and member.n_like == one.n_like
+        assert torch.equal(member.samples_u, one.samples_u) and torch.equal(member.logl, one.logl)
+    # one launch per stacked call: as many as the longest member's own
+    assert solo_launches <= fleet_launches < 3 * solo_launches
