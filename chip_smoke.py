@@ -97,6 +97,7 @@ must not import jax or mcalf_tpu: checked at the end.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import re
@@ -105,6 +106,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -788,15 +790,20 @@ def _write_cfg(path: Path, outdir: Path, brange=None, run="",
 
 def _drive_cli(cfg: Path, *argv) -> dict:
     """``mcalf_torch.cli.main`` on ``cfg`` with the fused kernel's launch
-    count set to 0 just before and read just after.  Beside it: what every
-    ``runner.run_fit`` and ``runner.dynamic_sample`` call returned, the
-    likelihood batches (calls of ``TorchForward.loglike_cube``), the
-    stacked likelihood calls of a fleet (``StackedForward.loglike_cube``)
-    and their rows.  An exception of the fit passes through, the counts up to it in
-    its ``drive`` attribute."""
+    count and the captured loops' counts set to 0 just before and read just
+    after.  Beside it: what every ``runner.run_fit`` and
+    ``runner.dynamic_sample`` call returned, the likelihood batches the card
+    ran (calls of ``TorchForward.loglike_cube``), the stacked likelihood
+    calls of a fleet (``StackedForward.loglike_cube``) and their rows.  A
+    call counts when the card runs it (``utils.profiling.count_launch``): a
+    call captured in the slice loop's CUDA graph counts at each replay.  An
+    exception of the fit passes through, the counts up to it in its
+    ``drive`` attribute."""
     from mcalf_torch import cli, runner
     from mcalf_torch.models.torch_model import StackedForward, TorchForward
     from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.sampler import graph
+    from mcalf_torch.utils.profiling import count_launch
 
     out = {"fits": [], "dynamic": [], "batches": 0, "rows": 0, "stacked": 0}
     run_fit, dynamic_sample = runner.run_fit, runner.dynamic_sample
@@ -810,14 +817,19 @@ def _drive_cli(cfg: Path, *argv) -> dict:
 
         return wrapped
 
+    def count(kind, rows):
+        def add(n):
+            out[kind] += n
+            out["rows"] += n * rows
+
+        count_launch(add)
+
     def counted_loglike_cube(self, u):
-        out["batches"] += 1
-        out["rows"] += u.shape[:-1].numel()
+        count("batches", u.shape[:-1].numel())
         return loglike_cube(self, u)
 
     def counted_stacked(self, u, prob):
-        out["stacked"] += 1
-        out["rows"] += u.shape[0]
+        count("stacked", u.shape[0])
         return stacked_loglike_cube(self, u, prob)
 
     runner.run_fit = recording(run_fit, out["fits"])
@@ -826,6 +838,7 @@ def _drive_cli(cfg: Path, *argv) -> dict:
     StackedForward.loglike_cube = counted_stacked
     try:
         voigt_cuda.launches = 0
+        graph.reset_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
@@ -837,6 +850,7 @@ def _drive_cli(cfg: Path, *argv) -> dict:
             torch.cuda.synchronize()
             out["wall"] = time.perf_counter() - t0
             out["launches"] = voigt_cuda.launches
+            out["graph"] = dict(graph.stats)
     finally:
         runner.run_fit, runner.dynamic_sample = run_fit, dynamic_sample
         TorchForward.loglike_cube = loglike_cube
@@ -871,20 +885,28 @@ def phase_slice(tmp: Path, name: str, brange=None) -> dict:
     res, base = run["fits"][0]
     logz, _, posterior = _read_chain_pair(base, 2 + 34)
     nlive, B = 200, 100
-    batches = 1 + (res.n_like - nlive) // B
-    if launches < batches or launches < run["batches"]:
-        raise AssertionError(f"{launches} kernel launches < {batches} batches")
+    batches = 1 + (res.n_like - nlive) // B  # calls with a chain to move
+    g = run["graph"]
+    if launches < run["batches"] or launches < batches or g["captures"] != 1:
+        raise AssertionError(f"{launches} kernel launches, {run['batches']} batches run, "
+                             f"{batches} with a chain to move, {g['captures']} graphs")
     print(
         f"[6 slice] {name} ndim=34 nlive=200 B=100 num_repeats="
         f"{SLICE_NUM_REPEATS} max_samples={SLICE_MAX_SAMPLES}: "
         f"{res.n_iter} steps, n_like={res.n_like}, wall {wall:.2f} s, "
         f"{res.n_like / wall:.4g} evals/s, logZ={logz:.3f} "
         f"(+/- {float(res.logzerr):.3f}, unconverged by design), "
-        f"kernel launches {launches} >= batches {batches}, "
+        f"kernel launches {launches} >= batches run {run['batches']} (1 initial + "
+        f"{g['warmups']} warm-up + "
+        f"{g['replays']} replays x {g['iterations'] // max(g['replays'], 1)}) >= "
+        f"{batches} with a chain to move; {g['replays'] / res.n_iter:.2f} replays and "
+        f"{g['reads'] / res.n_iter:.2f} flag reads per outer step; "
+        f"{wall / (launches - 1) * 1e3:.4f} ms per slice iteration run; "
         f"equal-weight rows {posterior.shape[0]}"
     )
     return {"launches": launches, "wall": wall, "n_like": res.n_like,
-            "posterior": posterior, "base": base}
+            "posterior": posterior, "base": base, "iterations": launches - 1,
+            "graph": g, "steps": res.n_iter}
 
 
 def phase_tau_path(posterior: np.ndarray) -> dict:
@@ -1023,8 +1045,9 @@ def _anchor_cfg(out: Path, *, solver="polychord", ncomp="1,1", run="", ns="",
 
 
 def _check_launches(tag: str, run: dict) -> None:
-    """A solo fit: at least one fused launch per likelihood batch.  A fleet
-    (stacked calls, no solo batch): exactly one per stacked call."""
+    """A solo fit: at least one fused launch per likelihood batch run.  A
+    fleet (stacked calls, no solo batch): exactly one per stacked call run
+    (replayed iterations included)."""
     if run.get("rc", 0) != 0:
         raise AssertionError(f"{tag}: cli.main returned {run['rc']}")
     if run["stacked"]:
@@ -1076,12 +1099,14 @@ def phase_variants(tmp: Path, smi: str) -> int:
         total += run["launches"]
         if run["stacked"]:
             launches = (f"fused-kernel launches {run['launches']} = stacked likelihood "
-                        f"calls {run['stacked']}")
+                        f"calls run {run['stacked']}")
         else:
             launches = (f"fused-kernel launches {run['launches']} >= likelihood batches "
-                        f"{run['batches']}")
+                        f"run {run['batches']}")
+        g = run["graph"]
         print(f"[9 {tag}] {text}; wall {run['wall']:.2f} s, {launches} "
-              f"({run['rows']} evaluations)  [{smi}]")
+              f"({run['rows']} rows evaluated; {g['captures']} graphs, {g['replays']} "
+              f"replays, {g['reads']} flag reads)  [{smi}]")
 
     # (a) a seed ensemble at full width, merged by birth contours
     out = tmp / "seeds"
@@ -1271,65 +1296,82 @@ def phase_variants(tmp: Path, smi: str) -> int:
 FLEET_SEEDS = (43, 44, 45, 46)
 
 
-def phase_fleet(tmp: Path, smi: str, flagship: dict) -> dict:
-    """Phase 10: ``fit_many`` on four seeds of phase 6's flagship slice,
-    the first phase 6's own; one fused launch per stacked likelihood call;
-    seed 43's files, written as the runner writes a fit's, byte for byte
-    phase 6's."""
+def _flagship_setup(out: Path):
+    """Phase 6's flagship slice as the runner sets it up: its config, model
+    and sampler settings, on the current card."""
     from mcalf_torch import runner
     from mcalf_torch.config import readconfig
-    from mcalf_torch.models import make_torch_forward
-    from mcalf_torch.models.torch_model import StackedForward
-    from mcalf_torch.ops import voigt_cuda
-    from mcalf_torch.parallel import fit_many, make_mesh
-    from mcalf_torch.sampler.nested import unstack_results
+    from mcalf_torch.parallel import make_mesh
 
-    out = tmp / "fleet"
     out.mkdir()
     _write_cfg(out / "fit.cfg", out)
     cp = readconfig(str(out / "fit.cfg"))
     model = runner.build_model(cp)
-    mesh = make_mesh()
-    plan, cfg, _ = runner._sampler_configs(cp, model, mesh[0])
-    gens = [torch.Generator(device=mesh[0]).manual_seed(s) for s in FLEET_SEEDS]
+    device = make_mesh()[0]
+    plan, cfg, _ = runner._sampler_configs(cp, model, device)
+    return cp, model, plan, cfg, device
+
+
+def phase_fleet(tmp: Path, smi: str, flagship: dict) -> dict:
+    """Phase 10: ``fit_many`` on four seeds of phase 6's flagship slice,
+    the first phase 6's own; one fused launch per stacked likelihood call
+    run (each replayed iteration one call); seed 43's files, written as the
+    runner writes a fit's, byte for byte phase 6's."""
+    from mcalf_torch import runner
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.models.torch_model import StackedForward
+    from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.parallel import fit_many
+    from mcalf_torch.sampler import graph
+    from mcalf_torch.sampler.nested import unstack_results
+    from mcalf_torch.utils.profiling import count_launch
+
+    cp, model, plan, cfg, device = _flagship_setup(tmp / "fleet")
+    gens = [torch.Generator(device=device).manual_seed(s) for s in FLEET_SEEDS]
     loglike_cube, calls = StackedForward.loglike_cube, []
 
-    def counted(self, u, prob):
-        calls.append(u.shape[0])
+    def counted(self, u, prob):  # a call counts when the card runs it
+        count_launch(lambda n, rows=u.shape[0]: calls.extend([rows] * n))
         return loglike_cube(self, u, prob)
 
     StackedForward.loglike_cube = counted
     try:
         voigt_cuda.launches = 0
+        graph.reset_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = fit_many([model] * len(FLEET_SEEDS), cfg, mesh=mesh, generators=gens)
+        res = fit_many([model] * len(FLEET_SEEDS), cfg, mesh=[device], generators=gens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = voigt_cuda.launches
+        g = dict(graph.stats)
     finally:
         StackedForward.loglike_cube = loglike_cube
     members = [r.numpy() for r in unstack_results(res)]
-    if launches != len(calls):
-        raise AssertionError(f"fleet: {launches} fused launches for {len(calls)} stacked calls")
+    run_calls = len(calls)
+    if launches != run_calls:
+        raise AssertionError(f"fleet: {launches} fused launches for {run_calls} stacked calls run")
     n_like = sum(r.n_like for r in members)
-    if sum(calls) != n_like:
-        raise AssertionError(f"fleet: {sum(calls)} rows evaluated, members count {n_like}")
-    fwd = make_torch_forward(model, mesh[0])
+    rows = sum(calls)
+    if rows < n_like:
+        raise AssertionError(f"fleet: {rows} rows evaluated, members count {n_like}")
+    fwd = make_torch_forward(model, device)
     base = runner._write_fit(cp, fwd, members[0], [("", members[0], cfg)], plan, cfg, [], False)
     for suffix in (".stats", "_equal_weights.txt"):
         if Path(base + suffix).read_bytes() != Path(flagship["base"] + suffix).read_bytes():
             raise AssertionError(f"fleet: seed 43's {suffix} differs from phase 6's flagship slice")
     rate, solo = n_like / wall, flagship["n_like"] / flagship["wall"]
-    iters = len(calls) - 1  # the first call evaluates the four initial live sets
+    iters = run_calls - 1  # the first call evaluates the four initial live sets
+    steps = max(r.n_iter for r in members)
     print(
         f"[10 fleet] fit_many, seeds {list(FLEET_SEEDS)} of the flagship slice (ndim 34, nlive "
         f"200, B=100, {SLICE_NUM_REPEATS} repeats, max_samples {SLICE_MAX_SAMPLES}): wall "
-        f"{wall:.2f} s, {n_like} evaluations ({[r.n_like for r in members]}), {iters} stacked "
-        f"slice iterations + 1 initial call = {launches} fused launches, "
-        f"{wall / len(calls) * 1e3:.3f} ms per stacked call; logZ "
-        f"{[round(float(r.logz), 3) for r in members]}; seed 43's .stats and "
-        f"_equal_weights.txt byte for byte phase 6's"
+        f"{wall:.2f} s, {n_like} evaluations ({[r.n_like for r in members]}) of {rows} rows "
+        f"evaluated, {iters} stacked slice iterations run (1 warm-up + {g['replays']} replays) "
+        f"+ 1 initial call = {launches} fused launches, {g['replays'] / steps:.2f} replays and "
+        f"{g['reads'] / steps:.2f} flag reads per outer step, {wall / iters * 1e3:.4f} ms per "
+        f"stacked iteration; logZ {[round(float(r.logz), 3) for r in members]}; seed 43's "
+        f".stats and _equal_weights.txt byte for byte phase 6's"
     )
     print(
         f"[10 fleet] aggregate {rate:.4g} evals/s against the solo flagship slice's "
@@ -1337,10 +1379,219 @@ def phase_fleet(tmp: Path, smi: str, flagship: dict) -> dict:
         f"launches): {rate / solo:.3f}x  [{smi}]"
     )
     return {"launches": launches, "wall": wall, "n_like": n_like, "rate": rate,
-            "solo_rate": solo}
+            "solo_rate": solo, "members": members, "iterations": iters, "graph": g}
+
+
+#: seconds of idle time at each end of a profiled window
+TRACE_MARGIN_S = 0.2
+
+
+def _union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def _profile_window(tag: str, trace_dir: Path, loglike_rows, states, gens, cfg, loop) -> dict:
+    """One outer step of the problems in ``states`` under torch.profiler
+    (``mcalf_torch.utils.profiling.trace``), after one step outside it that
+    captures the graph: CUDA kernel launches, graph launches and host
+    synchronisations per slice iteration run, from the trace's runtime
+    events, and the device's busy share of the window's wall (the union of
+    its kernel, copy and set intervals).  The fused kernel's runs in the
+    trace must equal the launches ``voigt_cuda.launches`` counted in the
+    window (a captured launch counts at each replay)."""
+    from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.sampler import nested
+    from mcalf_torch.utils.profiling import trace
+
+    cfg = cfg.resolved()
+    probs = list(range(len(states)))
+    cum = nested._cum_dlogx(cfg, states[0].live_u.device)
+    graphs = {}
+    states = nested._steps(loglike_rows, states, gens, probs, cfg, cum, loop, graphs)
+    before = voigt_cuda.launches
+    torch.cuda.synchronize()
+    with trace(str(trace_dir / tag)):
+        # idle margins: the profiler keeps only device events it dates
+        # inside its window, and it dates them by another clock
+        time.sleep(TRACE_MARGIN_S)
+        t0 = time.perf_counter()
+        nested._steps(loglike_rows, states, gens, probs, cfg, cum, loop, graphs)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(TRACE_MARGIN_S)
+    iters = voigt_cuda.launches - before
+    [path] = (trace_dir / tag).glob("*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    runtime = {}
+    for e in events:
+        if e.get("cat") == "cuda_runtime":
+            runtime[e["name"]] = runtime.get(e["name"], 0) + 1
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    fused = sum(1 for e in events
+                if e.get("cat") == "kernel" and "fused_loglike_kernel" in e.get("name", ""))
+    if fused != iters:
+        graph_launches = {e["args"].get("correlation") for e in events
+                          if e.get("cat") == "cuda_runtime" and e["name"] == "cudaGraphLaunch"}
+        per_launch = collections.Counter(
+            e["args"].get("correlation") for e in events if e.get("cat") == "kernel"
+            and "fused_loglike_kernel" in e.get("name", "")
+            and e["args"].get("correlation") in graph_launches)
+        raise AssertionError(
+            f"loops: {tag}'s trace holds {fused} fused_loglike_kernel runs, voigt_cuda.launches "
+            f"counted {iters}; runs per cudaGraphLaunch in the trace (runs: launches): "
+            f"{dict(collections.Counter(per_launch[c] for c in graph_launches))}")
+    busy = _union_us(device)
+    return {
+        "iterations": iters,
+        "fused_kernel_events": fused,
+        "launches_per_iter": sum(n for k, n in runtime.items()
+                                 if k.startswith("cudaLaunchKernel")) / iters,
+        "graph_launches_per_iter": runtime.get("cudaGraphLaunch", 0) / iters,
+        "syncs_per_iter": sum(n for k, n in runtime.items() if "Synchronize" in k) / iters,
+        "device_events": len(device),
+        "busy_share": busy / wall_us if device else None,
+        "device_us_per_iter": busy / iters,
+        "wall_ms_per_iter_profiled": wall_us / iters / 1e3,
+    }
+
+
+def phase_loops(tmp: Path, smi: str, flagship: Optional[dict], fleet: Optional[dict],
+                ks: Sequence[int] = (), profile: bool = True) -> dict:
+    """Phase 11: the captured slice loop against the eager one
+    (``_loop="eager"``) on phase 6's flagship slice (seed 43) and on phase
+    10's fleet of four seeds, in turns: captured at each block size of
+    ``ks`` (default: the sampler's ``BLOCK_ITERATIONS``), eager, captured at
+    each k again in reverse.  Every turn's chain files or results byte for
+    byte phase 6's and phase 10's (with ``flagship`` / ``fleet`` None: the
+    eager turn's); ms per slice iteration run, evals/s, replays and flag
+    reads per outer step; then, with ``profile``, one profiled outer step of
+    each loop (launches, graph launches and syncs per iteration, the
+    device's busy share).  ``tools/slice_blocks.py`` runs it at several k."""
+    from mcalf_torch import runner
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.models.batched import stack_problems
+    from mcalf_torch.models.torch_model import make_stacked_forward
+    from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.sampler import finalize, graph, init_state, nested, nested_sample
+    from mcalf_torch.sampler.nested import nested_sample_stacked
+
+    cp, model, plan, cfg, device = _flagship_setup(tmp / "loops")
+    gp = model.gpriors is not None
+    fwd = make_torch_forward(model, device, gpriors=gp)
+    sf = make_stacked_forward(*stack_problems([model] * len(FLEET_SEEDS), gpriors=gp), device)
+    default_k = nested.BLOCK_ITERATIONS
+    ks = list(ks) or [default_k]
+
+    def timed(fn, k):
+        nested.BLOCK_ITERATIONS = k
+        voigt_cuda.launches = 0
+        graph.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            nested.BLOCK_ITERATIONS = default_k
+        wall = time.perf_counter() - t0
+        return dict(out=out, wall=wall, iterations=voigt_cuda.launches - 1, graph=dict(graph.stats))
+
+    def solo(loop, k):
+        gen = torch.Generator(device=device).manual_seed(FLEET_SEEDS[0])
+        return timed(lambda: [nested_sample(fwd.loglike_cube, gen, cfg, device, _loop=loop).numpy()], k)
+
+    def stacked(loop, k):
+        gens = [torch.Generator(device=device).manual_seed(s) for s in FLEET_SEEDS]
+        return timed(lambda: [finalize(f, cfg).numpy() for f in nested_sample_stacked(
+            sf.loglike_cube, gens, cfg, device, _loop=loop)], k)
+
+    def same(a, b):
+        return (a.n_like == b.n_like and np.array_equal(a.samples_u, b.samples_u)
+                and np.array_equal(a.logl, b.logl) and a.logz == b.logz)
+
+    rows = {}
+    for name, run in (("solo", solo), ("fleet", stacked)):
+        turns = ([(k, run(None, k)) for k in ks] + [(None, run("eager", default_k))]
+                 + [(k, run(None, k)) for k in reversed(ks)])
+        eager = next(t for k, t in turns if k is None)
+        if name == "solo" and flagship is not None:
+            held = "files byte for byte phase 6's"
+        elif name == "fleet" and fleet is not None:
+            held, ref = "members bit for bit phase 10's", fleet["members"]
+        else:
+            held, ref = "results bit for bit the eager turn's", eager["out"]
+        for i, (k, t) in enumerate(turns):
+            t["n_like"] = sum(r.n_like for r in t["out"])
+            if held.startswith("files"):
+                res = t["out"][0]
+                base = runner._write_fit(cp, fwd, res, [("", res, cfg)], plan, cfg, [], False)
+                for suffix in (".stats", "_equal_weights.txt"):
+                    if Path(base + suffix).read_bytes() != Path(flagship["base"] + suffix).read_bytes():
+                        raise AssertionError(f"loops: solo turn {i}'s {suffix} differs from phase 6's")
+            elif not all(same(a, b) for a, b in zip(t["out"], ref)):
+                raise AssertionError(f"loops: {name} turn {i} differs; want {held}")
+        rows[name] = rec = dict(
+            eager_ms_per_iter=eager["wall"] / eager["iterations"] * 1e3,
+            eager_evals_per_s=eager["n_like"] / eager["wall"], eager_wall_s=eager["wall"],
+            eager_iterations=eager["iterations"], captured={},
+        )
+        for k in ks:
+            cap = [t for kk, t in turns if kk == k]
+            steps = max(r.n_iter for r in cap[0]["out"])
+            rec["captured"][k] = c = dict(
+                ms_per_iter=[t["wall"] / t["iterations"] * 1e3 for t in cap],
+                evals_per_s=[t["n_like"] / t["wall"] for t in cap],
+                wall_s=[t["wall"] for t in cap], iterations=cap[0]["iterations"],
+                beyond_eager=cap[0]["iterations"] - cap[0]["graph"]["warmups"] - eager["iterations"],
+                replays=cap[0]["graph"]["replays"], reads=cap[0]["graph"]["reads"], steps=steps,
+            )
+            speedup = [r / rec["eager_evals_per_s"] for r in c["evals_per_s"]]
+            print(
+                f"[11 loops] {name} flagship slice (seed{'s' if name == 'fleet' else ''} "
+                f"{list(FLEET_SEEDS) if name == 'fleet' else FLEET_SEEDS[0]}), k = {k}, captured / "
+                f"eager / captured: {c['wall_s'][0]:.2f} / {rec['eager_wall_s']:.2f} / "
+                f"{c['wall_s'][1]:.2f} s, {c['ms_per_iter'][0]:.4f} / "
+                f"{rec['eager_ms_per_iter']:.4f} / {c['ms_per_iter'][1]:.4f} ms per slice "
+                f"iteration run ({c['iterations']} captured, {c['beyond_eager']} of them beyond "
+                f"the eager {rec['eager_iterations']}), {c['evals_per_s'][0]:.4g} / "
+                f"{rec['eager_evals_per_s']:.4g} / {c['evals_per_s'][1]:.4g} evals/s "
+                f"({speedup[0]:.2f}x, {speedup[1]:.2f}x); {c['replays'] / steps:.2f} replays and "
+                f"{c['reads'] / steps:.2f} flag reads per outer step; every turn's {held}  [{smi}]"
+            )
+    if not profile:
+        return rows
+    trace_dir = tmp / "traces"
+    gen = lambda s: torch.Generator(device=device).manual_seed(s)
+    for name in ("solo", "fleet"):
+        seeds = FLEET_SEEDS[:1] if name == "solo" else FLEET_SEEDS
+        for loop in ("eager", None):
+            gens = [gen(s) for s in seeds]
+            states = [init_state(fwd.loglike_cube, g, cfg, device) for g in gens]
+            ll = (lambda u, prob: fwd.loglike_cube(u)) if name == "solo" else sf.loglike_cube
+            w = _profile_window(f"{name}_{loop or 'captured'}", trace_dir, ll, states, gens, cfg, loop)
+            rows[name]["profile_" + (loop or "captured")] = w
+            busy = "not measured (no device events)" if w["busy_share"] is None else f"{w['busy_share']:.3f}"
+            print(
+                f"[11 loops] {name} {loop or 'captured'}, one profiled outer step ({w['iterations']} "
+                f"slice iterations, {w['fused_kernel_events']} fused_loglike_kernel runs in the "
+                f"trace = the launches counted): {w['launches_per_iter']:.2f} CUDA launches, "
+                f"{w['graph_launches_per_iter']:.4f} cudaGraphLaunch and {w['syncs_per_iter']:.4f} "
+                f"syncs per iteration; device busy share {busy}, {w['device_us_per_iter']:.1f} us of "
+                f"device work and {w['wall_ms_per_iter_profiled']:.4f} ms of profiled wall per "
+                f"iteration  [{smi}]"
+            )
+    return rows
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     smi = phase_device()
     regs = phase_build()
     worst = phase_kernel_check()
@@ -1359,8 +1610,13 @@ def main() -> int:
         phase_anchor([3.0, 40.0], NARROW_LOGZ, "1-comp narrow")
         launches_variants = phase_variants(tmp, smi)
         fleet = phase_fleet(tmp, smi, flagship)
+        loops = phase_loops(tmp, smi, flagship, fleet)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t_start
+    print(f"[total] chip_smoke.py wall {wall:.1f} s of its 1200 s  [{smi}]")
+    if wall >= 1200:
+        raise AssertionError(f"chip_smoke.py took {wall:.1f} s, over its 1200 s")
     imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "mcalf_tpu"))
     if imported:
         raise AssertionError(f"the port imported {imported[:5]}")
@@ -1392,6 +1648,12 @@ def main() -> int:
             "stacked": timing["stacked"],
             "fleet_evals_per_s": fleet["rate"],
             "solo_slice_evals_per_s": fleet["solo_rate"],
+            # phase 11: the captured slice loop against the eager one
+            "loops": {name: {k: v for k, v in rec.items() if not k.startswith("profile")}
+                      for name, rec in loops.items()},
+            "loop_profiles": {f"{name} {k[8:]}": {m: rec[k][m] for m in (
+                "launches_per_iter", "graph_launches_per_iter", "syncs_per_iter", "busy_share")}
+                for name, rec in loops.items() for k in rec if k.startswith("profile")},
         },
         {
             "name": "voigt_tau",

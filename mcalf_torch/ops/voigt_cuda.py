@@ -28,7 +28,9 @@ strongly damped transition.
 
 Each wrapper dispatches on where its tensors live: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise.  ``launches`` and
-``tau_launches`` count kernel launches.  The kernels' design and what
+``tau_launches`` count kernel launches as the card runs them: a launch
+captured in a CUDA graph counts at each replay
+(:func:`mcalf_torch.utils.profiling.count_launch`).  The kernels' design and what
 bounds them are noted in their sources; their launch geometries (the fused
 kernel's thread block cluster per sample, the tau kernel's CTA per sample
 group and pixel tile) are :func:`fused_geometry`'s and
@@ -46,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from mcalf_torch.ops.faddeeva import N_TERMS, hjert, hjert_harris, hjert_wing
+from mcalf_torch.utils.profiling import count_launch
 
 __all__ = [
     "MODE_HARRIS",
@@ -376,9 +379,13 @@ def voigt_tau(dz, gain, av, dnu, d0, cw, tmin, modes) -> torch.Tensor:
     if B == 0 or P == 0:
         return tau
     _launch_tau(named, modes, tau, damped, geo)
-    global tau_launches
-    tau_launches += 1
+    count_launch(_add_tau_launches)
     return tau
+
+
+def _add_tau_launches(n: int) -> None:
+    global tau_launches
+    tau_launches += n
 
 
 def _launch_tau(named, modes, tau, damped: bool, geo: TauGeometry) -> None:
@@ -524,6 +531,10 @@ def fused_loglike(
     )
     if err != 0:
         raise RuntimeError(f"fused_loglike kernel launch failed: CUDA error {err}")
-    global launches
-    launches += 1
+    count_launch(_add_launches)
     return chi2, n4, n5
+
+
+def _add_launches(n: int) -> None:
+    global launches
+    launches += n

@@ -58,6 +58,7 @@ from mcalf_torch.utils.checkpoint import (
     prune_checkpoints,
     save_state,
 )
+from mcalf_torch.utils.profiling import phase_timer
 
 KNOWN_SOLVERS = (
     "polychord",
@@ -482,71 +483,72 @@ def run_fit(
 
         return on_chunk
 
-    want_cb = bool(ckpt_write or showprogress)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    if dynamic:
-        # Two-pass posterior-boost sampling (sampler/dynamic.py) -- the
-        # dyPolyChord analogue.  Both passes checkpoint and report through
-        # the same chunked machinery (base under the ns_state prefix, boost
-        # under ns_boost); a kill mid-boost resumes past the (terminal) base
-        # checkpoint into the boost pass.
-        dyn = dynamic_sample(
-            fwd.loglike_cube,
-            gen,
-            cfg,
-            device,
-            boost_config=boost_cfg,
-            boost_start_mass=plan.boost_start_mass,
-            base_state=state,
-            boost_state=boost_state,
-            on_chunk_base=make_on_chunk("ns_state") if want_cb else None,
-            on_chunk_boost=(
-                make_on_chunk("ns_boost", tag="boost ") if want_cb else None
-            ),
-        )
-        res, post = dyn.base, dyn.merged
-        runs = [("", dyn.base, cfg), ("boost ", dyn.boost, boost_cfg or cfg)]
-        if debug:
-            print(
-                f"[DEBUG]: dynamic boost above lnL={dyn.l_init:.3f}; "
-                f"posterior ESS {posterior_ess(dyn.base.log_posterior_weights):.0f}"
-                f" -> {posterior_ess(dyn.merged.log_posterior_weights):.0f}"
+    with phase_timer("nested_sampling"):
+        want_cb = bool(ckpt_write or showprogress)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        if dynamic:
+            # Two-pass posterior-boost sampling (sampler/dynamic.py) -- the
+            # dyPolyChord analogue.  Both passes checkpoint and report through
+            # the same chunked machinery (base under the ns_state prefix, boost
+            # under ns_boost); a kill mid-boost resumes past the (terminal) base
+            # checkpoint into the boost pass.
+            dyn = dynamic_sample(
+                fwd.loglike_cube,
+                gen,
+                cfg,
+                device,
+                boost_config=boost_cfg,
+                boost_start_mass=plan.boost_start_mass,
+                base_state=state,
+                boost_state=boost_state,
+                on_chunk_base=make_on_chunk("ns_state") if want_cb else None,
+                on_chunk_boost=(
+                    make_on_chunk("ns_boost", tag="boost ") if want_cb else None
+                ),
             )
-    elif auto_repeats:
-        conv = converged_sample(
-            fwd.loglike_cube,
-            seed,
-            cfg,
-            device,
-            seeds=2,
-            verbose=debug or showprogress,
-        )
-        res, post = conv.results[0], conv.merged
-        # Every ladder seed feeds the merged evidence, so every one gets a
-        # recorded verdict (not just the first).
-        runs = [(f"seed{i} ", r, cfg) for i, r in enumerate(conv.results)]
-        rungs = [r.num_repeats for r in conv.ladder]
-        if conv.converged:
-            print(
-                f"auto_repeats: evidence converged at num_repeats="
-                f"{conv.num_repeats} (ladder {rungs})"
+            res, post = dyn.base, dyn.merged
+            runs = [("", dyn.base, cfg), ("boost ", dyn.boost, boost_cfg or cfg)]
+            if debug:
+                print(
+                    f"[DEBUG]: dynamic boost above lnL={dyn.l_init:.3f}; "
+                    f"posterior ESS {posterior_ess(dyn.base.log_posterior_weights):.0f}"
+                    f" -> {posterior_ess(dyn.merged.log_posterior_weights):.0f}"
+                )
+        elif auto_repeats:
+            conv = converged_sample(
+                fwd.loglike_cube,
+                seed,
+                cfg,
+                device,
+                seeds=2,
+                verbose=debug or showprogress,
             )
+            res, post = conv.results[0], conv.merged
+            # Every ladder seed feeds the merged evidence, so every one gets a
+            # recorded verdict (not just the first).
+            runs = [(f"seed{i} ", r, cfg) for i, r in enumerate(conv.results)]
+            rungs = [r.num_repeats for r in conv.ladder]
+            if conv.converged:
+                print(
+                    f"auto_repeats: evidence converged at num_repeats="
+                    f"{conv.num_repeats} (ladder {rungs})"
+                )
+            else:
+                print(
+                    "WARNING: auto_repeats ladder budget exhausted at "
+                    f"num_repeats={conv.num_repeats} (ladder {rungs}) "
+                    "without meeting the doubling criterion; treat the "
+                    "evidence as a lower-confidence estimate or raise "
+                    "max_doublings/num_repeats."
+                )
         else:
-            print(
-                "WARNING: auto_repeats ladder budget exhausted at "
-                f"num_repeats={conv.num_repeats} (ladder {rungs}) "
-                "without meeting the doubling criterion; treat the "
-                "evidence as a lower-confidence estimate or raise "
-                "max_doublings/num_repeats."
-            )
-    else:
-        res = nested_sample(
-            fwd.loglike_cube, gen, cfg, device,
-            state=state,
-            on_chunk=make_on_chunk("ns_state") if want_cb else None,
-        ).numpy()
-        post = res
-        runs = [("", res, cfg)]
+            res = nested_sample(
+                fwd.loglike_cube, gen, cfg, device,
+                state=state,
+                on_chunk=make_on_chunk("ns_state") if want_cb else None,
+            ).numpy()
+            post = res
+            runs = [("", res, cfg)]
     print("Execution time {}".format(datetime.datetime.now() - t0))
 
     stats_extra = []
@@ -678,8 +680,9 @@ def _run_seed_ensemble(configpars, model, fwd, cfg, seeds, resample_S, device, d
     gens = [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
     if debug:
         print(f"[DEBUG]: {len(seeds)} seeds as one fleet on {device}")
-    batched = fit_stacked(spec, stacked, cfg, mesh=[device], generators=gens)
-    runs = [r.numpy() for r in unstack_results(batched)]
+    with phase_timer("nested_sampling"):
+        batched = fit_stacked(spec, stacked, cfg, mesh=[device], generators=gens)
+        runs = [r.numpy() for r in unstack_results(batched)]
     if debug:
         for s, res in zip(seeds, runs):
             print(f"[DEBUG]: seed {s}: logZ = {float(res.logz):.3f}")
@@ -861,7 +864,8 @@ def _fit_spectra_stacked(configpars, subs, models, spec, stacked, debug):
         print(f"--- fitting {sub['specfile']} (one fleet of {len(subs)} spectra on {device}) ---")
     gens = [torch.Generator(device=device).manual_seed(seed) for _ in subs]
     t0 = datetime.datetime.now()
-    batched = fit_stacked(spec, stacked, cfg, mesh=[device], generators=gens)
+    with phase_timer("nested_sampling"):
+        batched = fit_stacked(spec, stacked, cfg, mesh=[device], generators=gens)
     print("Execution time {}".format(datetime.datetime.now() - t0))
     out = []
     for sub, m, res in zip(subs, models, unstack_results(batched)):

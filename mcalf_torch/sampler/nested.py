@@ -19,9 +19,16 @@ same float32 arithmetic); see that module for the derivations.  In brief:
 
 What differs from the JAX package is the PyTorch idiom: every random draw
 comes from an explicit ``torch.Generator`` (the numbers are therefore not
-``jax.random``'s), the loops are eager Python loops (one host
-synchronisation per slice iteration, for the loop condition), and the
-state carries its scalar counters as Python ints.
+``jax.random``'s), the outer loop is a Python loop (one host read per
+outer step, for the termination test), and the state carries its scalar
+counters as Python ints.  The slice loop, which the JAX package runs as a
+``lax.while_loop`` inside the device program, runs on a CUDA device as
+replays of a CUDA graph of :data:`BLOCK_ITERATIONS` iterations, the host
+reading the loop's flags only between replays (:mod:`.graph`); on the CPU
+it is an eager loop with one host read per iteration.  Both run the same
+body (:func:`_slice_iter`) and give the same bits.  The JAX package's
+``warmup_executables`` has no counterpart: a run captures its graph at its
+first outer step (one warm-up iteration, then the capture), and keeps it.
 
 Several independent problems run together as a fleet
 (:func:`nested_sample_stacked`, the JAX package's ``vmap``/``shard_map``
@@ -35,6 +42,7 @@ fleet with one problem.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence
@@ -523,10 +531,20 @@ def slice_chains(
     B = u_start.shape[0]
     pool_d = _direction_pool(gen, surv_u, surv_cluster, cfg, B)
     u, logl, n_like = _slice_stacked(
-        lambda u, prob: loglike_batch(u), [gen], u_start[None], logl_start[None],
+        _one_problem(loglike_batch), [gen], u_start[None], logl_start[None],
         pool_d[None], torch.as_tensor(lstar).reshape(1), cfg, [0],
     )
     return u[0], logl[0], n_like[0]
+
+
+def _one_problem(loglike_batch):
+    """``loglike_batch`` as the likelihood of stacked rows of one problem
+    (the problem indices ignored), under its own name."""
+    @functools.wraps(loglike_batch)
+    def rows(u, prob):
+        return loglike_batch(u)
+
+    return rows
 
 
 def _check_bracket(cfg: NSConfig) -> None:
@@ -537,83 +555,271 @@ def _check_bracket(cfg: NSConfig) -> None:
         )
 
 
-def _slice_stacked(loglike_rows, gens, u_start, logl_start, pools, lstar, cfg, probs):
+#: slice iterations per replayed CUDA graph (sampler/graph.py): a block
+#: runs on for at most k - 1 iterations after the last chain's last pass,
+#: and the host reads the loop's flags once per block (PERF.md has the
+#: measured trade-off)
+BLOCK_ITERATIONS = 16
+
+
+class _Carry(NamedTuple):
+    """The slice loop's state, updated in place by :func:`_slice_iter`."""
+
+    u: torch.Tensor         # (Q, B, ndim) current points
+    logl: torch.Tensor      # (Q, B)
+    d: torch.Tensor         # (Q, B, ndim) direction of the current pass
+    lo: torch.Tensor        # (Q, B) bracket along d
+    hi: torch.Tensor        # (Q, B)
+    it_pass: torch.Tensor   # (Q, B) int32 proposals in the current pass
+    passes: torch.Tensor    # (Q, B) int32 passes made
+    it_total: torch.Tensor  # () int32 iterations made
+    n_like: torch.Tensor    # (Q,) int64 evaluations of problems with a pass to make
+
+
+class _Fixed(NamedTuple):
+    """What the slice loop reads and does not change, and its draw buffer."""
+
+    loglike_rows: Callable
+    gens: Sequence[torch.Generator]
+    pools: torch.Tensor     # (Q, num_repeats, B, ndim) directions
+    lstar: torch.Tensor     # (Q, 1) constraints
+    rows: torch.Tensor      # (Q * B,) int32 problem index of each row
+    r: torch.Tensor         # (Q, B) the iteration's uniform draws
+    status: torch.Tensor    # (2, Q) int64: problem has a pass to make; n_like
+    arange_q: torch.Tensor  # (Q, 1)
+    arange_b: torch.Tensor  # (1, B)
+    nrep: int
+    total_cap: int
+    max_shrink: int
+
+
+def _fixed(loglike_rows, gens, pools, lstar, probs, cfg) -> _Fixed:
+    Q, nrep, B = pools.shape[:3]
+    dev = pools.device
+    return _Fixed(
+        loglike_rows, list(gens), pools, lstar.reshape(Q, 1),
+        torch.tensor(probs, dtype=torch.int32, device=dev).repeat_interleave(B),
+        torch.zeros((Q, B), dtype=torch.float32, device=dev),
+        torch.zeros((2, Q), dtype=torch.int64, device=dev),
+        torch.arange(Q, device=dev)[:, None], torch.arange(B, device=dev)[None, :],
+        nrep, nrep * int(cfg.max_shrink), int(cfg.max_shrink),
+    )
+
+
+def _init_carry(u_start, logl_start, pools) -> _Carry:
+    Q, B = logl_start.shape
+    dev = u_start.device
+    d = pools[:, 0].clone()
+    lo, hi = _bracket(u_start, d)
+    zeros = lambda: torch.zeros((Q, B), dtype=torch.int32, device=dev)
+    return _Carry(
+        u_start.clone(), logl_start.clone(), d, lo, hi, zeros(), zeros(),
+        torch.zeros((), dtype=torch.int32, device=dev),
+        torch.zeros((Q,), dtype=torch.int64, device=dev),
+    )
+
+
+def _slice_iter(c: _Carry, x: _Fixed, live=None) -> None:
+    """One slice iteration of every chain, in place on ``c``: a uniform
+    draw per problem from its generator, one likelihood call, and the
+    accept / shrink / next-pass bookkeeping.  Where a problem has made all
+    its passes, or the loop is past its cap, nothing moves: ``acc`` and
+    ``rej`` are false there, so the carry and ``n_like`` keep their values.
+
+    ``live``: None to draw for, and evaluate the rows of, every problem
+    (the static shapes a CUDA graph replays; the rows of a problem that is
+    done are evaluated and masked); or (problems, their index tensor, their
+    rows) to draw for those alone and evaluate only their rows, as the
+    eager loop does."""
+    Q, B = c.logl.shape
+    dev = c.u.device
+    active = (c.passes < x.nrep) & (c.it_total < x.total_cap)
+    for q in range(Q) if live is None else live[0]:
+        torch.rand((B,), generator=x.gens[q], dtype=torch.float32, device=dev, out=x.r[q])
+    t = c.lo + x.r * (c.hi - c.lo)
+    u_prop = c.u + t[..., None] * c.d
+    inside = ((u_prop >= 0.0) & (u_prop <= 1.0)).all(dim=-1)
+    u_eval = torch.clamp(u_prop, 0.0, 1.0)
+    if live is None or len(live[0]) == Q:
+        ll_prop = x.loglike_rows(u_eval.reshape(Q * B, -1), x.rows).reshape(Q, B)
+    else:
+        qs, idx, rows = live
+        ll_prop = torch.full((Q, B), -math.inf, dtype=torch.float32, device=dev)
+        ll_prop[idx] = x.loglike_rows(u_eval[idx].reshape(len(qs) * B, -1), rows).reshape(-1, B)
+    ll_prop = torch.where(inside, ll_prop, -math.inf)
+    acc = (ll_prop > x.lstar) & active
+    u_cur = torch.where(acc[..., None], u_prop, c.u)
+    logl_cur = torch.where(acc, ll_prop, c.logl)
+    # Rejection shrinks the bracket toward the (unchanged) current point;
+    # a chain that exhausts max_shrink proposals keeps its point.
+    rej = active & ~acc
+    it_pass = torch.where(rej, c.it_pass + 1, c.it_pass)
+    lo = torch.where(rej & (t < 0), t, c.lo)
+    hi = torch.where(rej & (t >= 0), t, c.hi)
+    exhausted = rej & (it_pass >= x.max_shrink)
+    fin = acc | exhausted
+    passes = c.passes + fin.to(torch.int32)
+    need = fin & (passes < x.nrep)
+    d_new = x.pools[x.arange_q, torch.clamp(passes, max=x.nrep - 1).long(), x.arange_b]
+    lo_new, hi_new = _bracket(u_cur, d_new)
+    c.d.copy_(torch.where(need[..., None], d_new, c.d))
+    c.lo.copy_(torch.where(need, lo_new, lo))
+    c.hi.copy_(torch.where(need, hi_new, hi))
+    c.it_pass.copy_(torch.where(fin, 0, it_pass))
+    c.u.copy_(u_cur)
+    c.logl.copy_(logl_cur)
+    c.passes.copy_(passes)
+    c.n_like.add_(active.any(dim=1).to(torch.int64) * B)
+    c.it_total.add_(1)
+
+
+def _eager_loop(c: _Carry, x: _Fixed) -> None:
+    """The slice loop one iteration at a time, with one host read per
+    iteration of which problems still have a pass to make; a problem whose
+    chains are all done stays done and leaves the batch."""
+    Q, B = c.logl.shape
+    live = (list(range(Q)), None, None)
+    for _ in range(x.total_cap):
+        running = (c.passes < x.nrep).any(dim=1).tolist()
+        if not all(running[q] for q in live[0]):
+            qs = [q for q in live[0] if running[q]]
+            if not qs:
+                break
+            idx = torch.tensor(qs, device=c.u.device)
+            live = (qs, idx, x.rows.reshape(Q, B)[idx].reshape(-1))
+        _slice_iter(c, x, live)
+
+
+def _block(c: _Carry, x: _Fixed, k: int) -> None:
+    """k iterations of every chain, then the loop's status into
+    ``x.status``: whether each problem has a pass left to make, and its
+    evaluations."""
+    for _ in range(k):
+        _slice_iter(c, x)
+    x.status[0].copy_(((c.passes < x.nrep) & (c.it_total < x.total_cap)).any(dim=1))
+    x.status[1].copy_(c.n_like)
+
+
+def _block_loop(x: _Fixed, k: int, run_block) -> List[int]:
+    """Blocks of k iterations until no problem has a pass to make: the
+    first num_repeats // k blocks without a host read (a chain makes at
+    most one pass per iteration, so none can be done sooner), then one
+    read of the (2, Q) status after each block.  Returns each problem's
+    evaluations."""
+    from mcalf_torch.sampler.graph import stats
+
+    for _ in range(x.nrep // k):
+        run_block()
+    while True:
+        run_block()
+        running, n_like = x.status.tolist()
+        stats["reads"] += 1
+        if not any(running):
+            return n_like
+
+
+class _SliceBlocks:
+    """The slice loop of one set of stepping problems in blocks of k
+    iterations, over buffers kept from one outer step to the next: the
+    block replayed as a CUDA graph (``capture``), or run as it is.
+
+    Every block draws for every problem, so afterwards each generator is
+    set to where the eager loop leaves it: its state before the loop
+    advanced by the draws of the iterations its problem ran (n_like / B).
+    On a CUDA generator that is its Philox offset plus that many times the
+    offset one iteration draws; elsewhere the draws are made again."""
+
+    def __init__(self, loglike_rows, gens, probs, pools, cfg, k: int, capture: bool):
+        self.x = _fixed(loglike_rows, gens, torch.empty_like(pools),
+                        torch.empty((len(gens),), dtype=torch.float32, device=pools.device),
+                        probs, cfg)
+        self.k, self.capture = k, capture
+        self.c = None
+        self.graph = None
+
+    def run(self, u_start, logl_start, pools, lstar):
+        x, k = self.x, self.k
+        Q, B = logl_start.shape
+        x.pools.copy_(pools)
+        x.lstar.copy_(lstar.reshape(Q, 1))
+        c0 = _init_carry(u_start, logl_start, x.pools)
+        if self.c is None:
+            self.c = c0
+        else:
+            for dst, src in zip(self.c, c0):
+                dst.copy_(src)
+        c = self.c
+        if self.capture and self.graph is None:
+            from mcalf_torch.sampler.graph import BlockGraph
+
+            self.graph = BlockGraph(
+                lambda: _block(c, x, k),
+                lambda: _slice_iter(_Carry(*(t.clone() for t in c)), x),
+                x.gens, iterations=k,
+                name=getattr(x.loglike_rows, "__qualname__", repr(x.loglike_rows)),
+            )
+        saved = [g.get_state() for g in x.gens]
+        n_like = _block_loop(x, k, self.graph.replay if self.capture else lambda: _block(c, x, k))
+        for q, g in enumerate(x.gens):
+            g.set_state(saved[q])
+            if self.capture:
+                g.set_offset(g.get_offset() + n_like[q] // B * self.graph.draw_offset[q])
+            else:
+                for _ in range(n_like[q] // B):
+                    torch.rand((B,), generator=g, dtype=torch.float32, device=x.r.device,
+                               out=x.r[q])
+        return c.u.clone(), c.logl.clone(), n_like
+
+
+def _loop_kind(device: torch.device, loop: Optional[str]) -> str:
+    """The slice loop a run takes: ``"graph"`` (blocks replayed as a CUDA
+    graph) on a CUDA device, ``"eager"`` elsewhere, unless asked for
+    ``"eager"`` or ``"blocks"`` (the graph's blocks, not captured)."""
+    if loop is None:
+        return "graph" if device.type == "cuda" else "eager"
+    if loop not in ("eager", "blocks", "graph"):
+        raise ValueError(f"unknown slice loop {loop!r}")
+    if loop == "graph" and device.type != "cuda":
+        raise ValueError(f"a CUDA graph runs on a CUDA device, not {device}")
+    return loop
+
+
+def _slice_stacked(loglike_rows, gens, u_start, logl_start, pools, lstar, cfg, probs,
+                   *, loop=None, graphs=None):
     """:func:`slice_chains` for Q problems at once: chains (Q, B, ndim) from
     ``u_start`` with ``logl_start`` (Q, B), directions ``pools`` (Q,
     num_repeats, B, ndim), constraints ``lstar`` (Q,), problem q's draws
     from ``gens[q]``.  ``loglike_rows(u, prob)`` takes (N, ndim) points
     and their (N,) int32 problem indices (``probs[q]`` for stacked problem
     q), so each iteration is one likelihood call over the rows of every
-    problem whose chains still run.  Problem q's chains follow exactly
-    the sequence of states and draws that :func:`slice_chains` gives it
-    alone: the loop condition and the uniform draw are per problem, and
-    the rows of a problem that is done are left out of the batch.
+    problem.  Problem q's chains follow exactly the sequence of states and
+    draws that :func:`slice_chains` gives it alone, and its generator ends
+    where that run leaves it: the loop condition and the uniform draw are
+    per problem.
+
+    ``loop`` (:func:`_loop_kind`): on a CUDA device the iterations run as
+    replays of a CUDA graph of :data:`BLOCK_ITERATIONS` iterations,
+    captured once per (stepping problems, B, ndim) and kept in ``graphs``
+    (a dict the caller keeps for the run; None: this call's own) until
+    another set steps: the set only shrinks, as problems finish, so a run
+    holds one graph and its memory pool at a time; the
+    eager loop (the CPU's) reads the host once per iteration and leaves
+    a finished problem's rows out of the batch.
     Returns (u, logl, n_evals per problem)."""
     _check_bracket(cfg)
-    Q, B = logl_start.shape
-    dev = u_start.device
-    nrep = int(cfg.num_repeats)
-    total_cap = nrep * int(cfg.max_shrink)
-    arange_q = torch.arange(Q, device=dev)[:, None]
-    arange_b = torch.arange(B, device=dev)[None, :]
-    lstar = lstar[:, None]
-    all_rows = torch.tensor(probs, dtype=torch.int32, device=dev).repeat_interleave(B)
-
-    u_cur, logl_cur = u_start, logl_start
-    d = pools[:, 0]
-    lo, hi = _bracket(u_cur, d)
-    it_pass = torch.zeros((Q, B), dtype=torch.int32, device=dev)
-    passes = torch.zeros((Q, B), dtype=torch.int32, device=dev)
-    r = torch.zeros((Q, B), dtype=torch.float32, device=dev)
-    n_like = [0] * Q
-    live = list(range(Q))
-    it_total = 0
-    # one host read per iteration: which problems still have a pass to make
-    while it_total < total_cap:
-        active = passes < nrep
-        running = active.any(dim=1).tolist()
-        if not all(running[q] for q in live):
-            # a problem whose chains are all done stays done
-            live = [q for q in live if running[q]]
-            if not live:
-                break
-            idx = torch.tensor(live, device=dev)
-            rows = all_rows.reshape(Q, B)[idx].reshape(-1)
-        for q in live:
-            torch.rand((B,), generator=gens[q], dtype=torch.float32, device=dev, out=r[q])
-        t = lo + r * (hi - lo)
-        u_prop = u_cur + t[..., None] * d
-        inside = ((u_prop >= 0.0) & (u_prop <= 1.0)).all(dim=-1)
-        u_eval = torch.clamp(u_prop, 0.0, 1.0)
-        if len(live) == Q:
-            ll_prop = loglike_rows(u_eval.reshape(Q * B, -1), all_rows).reshape(Q, B)
-        else:
-            ll_prop = torch.full((Q, B), -math.inf, dtype=torch.float32, device=dev)
-            ll_prop[idx] = loglike_rows(u_eval[idx].reshape(len(live) * B, -1), rows).reshape(-1, B)
-        ll_prop = torch.where(inside, ll_prop, -math.inf)
-        acc = (ll_prop > lstar) & active
-        u_cur = torch.where(acc[..., None], u_prop, u_cur)
-        logl_cur = torch.where(acc, ll_prop, logl_cur)
-        # Rejection shrinks the bracket toward the (unchanged) current point;
-        # a chain that exhausts max_shrink proposals keeps its point.
-        rej = active & ~acc
-        it_pass = torch.where(rej, it_pass + 1, it_pass)
-        lo = torch.where(rej & (t < 0), t, lo)
-        hi = torch.where(rej & (t >= 0), t, hi)
-        exhausted = rej & (it_pass >= cfg.max_shrink)
-        fin = acc | exhausted
-        passes = passes + fin.to(torch.int32)
-        need = fin & (passes < nrep)
-        d_new = pools[arange_q, torch.clamp(passes, max=nrep - 1).long(), arange_b]
-        lo_new, hi_new = _bracket(u_cur, d_new)
-        d = torch.where(need[..., None], d_new, d)
-        lo = torch.where(need, lo_new, lo)
-        hi = torch.where(need, hi_new, hi)
-        it_pass = torch.where(fin, 0, it_pass)
-        for q in live:
-            n_like[q] += B
-        it_total += 1
-    return u_cur, logl_cur, n_like
+    loop = _loop_kind(u_start.device, loop)
+    if loop == "eager":
+        x = _fixed(loglike_rows, gens, pools, lstar, probs, cfg)
+        c = _init_carry(u_start, logl_start, pools)
+        _eager_loop(c, x)
+        return c.u, c.logl, c.n_like.tolist()
+    graphs = {} if graphs is None else graphs
+    key = (loop, tuple(probs), u_start.shape[1], u_start.shape[2])
+    if key not in graphs:
+        graphs.clear()
+        graphs[key] = _SliceBlocks(loglike_rows, gens, probs, pools, cfg,
+                                   BLOCK_ITERATIONS, capture=loop == "graph")
+    return graphs[key].run(u_start, logl_start, pools, lstar)
 
 
 class _Head(NamedTuple):
@@ -736,10 +942,12 @@ def _tail(s: NSState, h: _Head, u_new, logl_new, n_evals: int, cfg: NSConfig, ge
     )
 
 
-def _steps(loglike_rows, states, gens, probs, cfg: NSConfig, cum_dlogx):
+def _steps(loglike_rows, states, gens, probs, cfg: NSConfig, cum_dlogx, loop=None,
+           graphs=None):
     """One outer step of each of several problems: each problem's head on
     its own generator, their slice chains stacked, each problem's tail.
-    Problem q's new state is the one its step alone would give."""
+    Problem q's new state is the one its step alone would give.  ``loop``,
+    ``graphs``: see :func:`_slice_stacked`."""
     heads = [_head(s, cfg, g, cum_dlogx) for s, g in zip(states, gens)]
     u_new, logl_new, n_evals = _slice_stacked(
         loglike_rows, gens,
@@ -747,7 +955,7 @@ def _steps(loglike_rows, states, gens, probs, cfg: NSConfig, cum_dlogx):
         torch.stack([h.logl_start for h in heads]),
         torch.stack([h.pool for h in heads]),
         torch.stack([h.lstar for h in heads]),
-        cfg, probs,
+        cfg, probs, loop=loop, graphs=graphs,
     )
     return [
         _tail(s, h, u_new[i], logl_new[i], n_evals[i], cfg, g)
@@ -770,11 +978,12 @@ def run_steps(
     """Advance until termination or ``num_steps`` further outer steps."""
     cfg = config.resolved()
     cum_dlogx = _cum_dlogx(cfg, state.live_u.device)
-    ll = lambda u, prob: loglike_batch(u)
+    ll = _one_problem(loglike_batch)
+    graphs = {}
     for _ in range(int(num_steps)):
         if not _not_done(state, cfg):
             break
-        state = _steps(ll, [state], [gen], [0], cfg, cum_dlogx)[0]
+        state = _steps(ll, [state], [gen], [0], cfg, cum_dlogx, graphs=graphs)[0]
     return state
 
 
@@ -863,6 +1072,8 @@ def nested_sample(
     return_state: bool = False,
     chunk_steps: Optional[int] = None,
     on_chunk: Optional[Callable[[NSState], None]] = None,
+    *,
+    _loop: Optional[str] = None,
 ):
     """Run nested sampling on ``device``, stepping in chunks of outer steps
     from a host loop; the live set is re-clustered at every chunk boundary.
@@ -893,10 +1104,11 @@ def nested_sample(
     """
     cfg = config.resolved()
     [final] = nested_sample_stacked(
-        lambda u, prob: loglike_batch(u), [gen], cfg, device,
+        _one_problem(loglike_batch), [gen], cfg, device,
         states=None if state is None else [state],
         chunk_steps=chunk_steps,
         on_chunk=None if on_chunk is None else (lambda states: on_chunk(states[0])),
+        _loop=_loop,
     )
     results = finalize(final, cfg)
     return (results, final) if return_state else results
@@ -910,6 +1122,8 @@ def nested_sample_stacked(
     states: Optional[Sequence[NSState]] = None,
     chunk_steps: Optional[int] = None,
     on_chunk: Optional[Callable[[List[NSState]], None]] = None,
+    *,
+    _loop: Optional[str] = None,
 ) -> List[NSState]:
     """Run Q independent nested-sampling problems together, one generator
     each, and return their final states.
@@ -928,7 +1142,12 @@ def nested_sample_stacked(
     its state's ``rng`` where it carries one).  ``on_chunk(states)``: called
     with the list of every problem's state whenever no problem is inside a
     chunk (all at a boundary or done), so the list can be saved and
-    resumed."""
+    resumed.
+
+    On a CUDA device the slice iterations run as replays of CUDA graphs
+    captured once per set of stepping problems for the run
+    (:func:`_slice_stacked`); ``_loop="eager"`` asks for the loop of one
+    host read per iteration instead (the CPU's)."""
     cfg = config.resolved()
     Q = len(gens)
     if states is None:
@@ -949,6 +1168,7 @@ def nested_sample_stacked(
     first = [chunk_steps is None and s.step == 0 for s in states]
     left = [None] * Q  # outer steps left in each problem's chunk, None between chunks
     done = [False] * Q
+    graphs = {}  # the run's captured slice loops
     # The host touches a run only here, between chunks.
     while True:
         for q in range(Q):
@@ -965,7 +1185,8 @@ def nested_sample_stacked(
         stepping = [q for q in inside if left[q] > 0 and _not_done(states[q], cfg)]
         if stepping:
             new = _steps(loglike_rows, [states[q] for q in stepping],
-                         [gens[q] for q in stepping], stepping, cfg, cum_dlogx)
+                         [gens[q] for q in stepping], stepping, cfg, cum_dlogx,
+                         _loop, graphs)
             for q, s in zip(stepping, new):
                 states[q] = s
                 left[q] -= 1

@@ -145,7 +145,8 @@ def test_port_modules_import_neither_jax_nor_mcalf_tpu():
         assert not bad, bad
         new = {"mcalf_torch.analysis", "mcalf_torch.utils.checkpoint",
                "mcalf_torch.sampler.merge", "mcalf_torch.sampler.dynamic",
-               "mcalf_torch.sampler.repeats"}
+               "mcalf_torch.sampler.repeats", "mcalf_torch.sampler.graph",
+               "mcalf_torch.utils.profiling"}
         assert new <= set(names), sorted(new - set(names))
         print("IMPORTED", len(names))
     """)

@@ -4,11 +4,14 @@
 
 Runs ``testdata/fit.cfg`` (ndim 34, nlive 200) through ``mcalf_torch.cli``
 with ``[run] seeds`` at the bench's rung of 544 repeats, to convergence,
-one seed after the other, and prints the wall time, the evaluations, each
-seed's logZ and insertion-rank p, the merged logZ and the verdict of the
-flagship gate: every seed converged, every rank p > 0.01, and the merged
-logZ within 2 sigma of the repeats-ladder limit 4855.03, sigma the per-seed
-scatter 1.33 over sqrt(seeds) combined with the limit's 0.44.  The chain
+the seeds as one fleet, and prints the wall time, the evaluations (the
+sampler's device counters), the fused-kernel launches (counted per graph
+replay), each seed's logZ and insertion-rank p, their mean and sd, the
+merged logZ and the verdict of the flagship gate: every seed converged,
+every rank p > 0.01, and the merged logZ within 2 sigma of the
+repeats-ladder limit 4855.03, sigma the per-seed scatter 1.33 over
+sqrt(seeds) combined with the limit's 0.44; the mean's distance from the
+limit is printed against the same tolerance.  The chain
 files go to ``build/flagship_merge/`` (git-ignored); the last line is one
 JSON object, also written to ``chiprun_out/flagship_merge.json``.
 """
@@ -63,10 +66,12 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     seeds = [int(x) for x in args.seeds.split(",")]
 
-    from mcalf_torch import cli
+    import numpy as np
+
+    from mcalf_torch import cli, runner
     from mcalf_torch.io.chains import read_stats
-    from mcalf_torch.models.torch_model import TorchForward
     from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.sampler import graph
 
     out = ROOT / "build" / "flagship_merge"
     shutil.rmtree(out, ignore_errors=True)
@@ -79,24 +84,26 @@ def main() -> int:
     cfg = out / "fit.cfg"
     cfg.write_text(text)
 
-    rows = [0]
-    loglike_cube = TorchForward.loglike_cube
+    fleets = []
+    fit_stacked = runner.fit_stacked
 
-    def counted(self, u):
-        rows[0] += u.shape[:-1].numel()
-        return loglike_cube(self, u)
+    def recorded(*a, **k):
+        fleets.append(fit_stacked(*a, **k))
+        return fleets[-1]
 
-    TorchForward.loglike_cube = counted
+    runner.fit_stacked = recorded
     log = io.StringIO()
     try:
         voigt_cuda.launches = 0
+        graph.reset_stats()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(_Tee(sys.stdout, log)):
             rc = cli.main([str(cfg)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        TorchForward.loglike_cube = loglike_cube
+        runner.fit_stacked = fit_stacked
+    evaluations = int(sum(int(np.sum(r.n_like)) for r in fleets))
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
 
@@ -119,15 +126,22 @@ def main() -> int:
     for s in seeds:
         z, e, p = per_seed[s]
         print(f"[flagship merge] seed {s}: logZ {z:.3f} +/- {e:.3f}, rank p {p:.4f}")
-    print(f"[flagship merge] {len(seeds)} seeds at num_repeats={args.num_repeats}, one after "
-          f"the other: wall {wall:.1f} s, {rows[0]} evaluations ({rows[0] / wall:.4g} evals/s), "
-          f"fused-kernel launches {voigt_cuda.launches}; merged logZ {merged_logz:.3f} +/- "
-          f"{merged_err:.3f}, |d| from {LADDER_LIMIT} = {abs(merged_logz - LADDER_LIMIT):.3f} "
-          f"against {tol:.3f}; every seed converged: {all_converged}; gate passed: {ok}  [{smi}]")
+    logz = np.array([per_seed[s][0] for s in seeds])
+    mean, sd = float(logz.mean()), float(logz.std(ddof=1)) if len(seeds) > 1 else 0.0
+    g = dict(graph.stats)
+    print(f"[flagship merge] {len(seeds)} seeds at num_repeats={args.num_repeats} as one fleet: "
+          f"wall {wall:.1f} s, {evaluations} evaluations ({evaluations / wall:.4g} evals/s), "
+          f"fused-kernel launches {voigt_cuda.launches} ({g['replays']} graph replays of "
+          f"{g['captures']} graphs, {g['reads']} flag reads); per-seed logZ mean {mean:.3f}, sd "
+          f"{sd:.3f}, |mean - {LADDER_LIMIT}| = {abs(mean - LADDER_LIMIT):.3f} against "
+          f"{tol:.3f}; merged logZ {merged_logz:.3f} +/- {merged_err:.3f}, |d| = "
+          f"{abs(merged_logz - LADDER_LIMIT):.3f} against {tol:.3f}; every seed converged: "
+          f"{all_converged}; gate passed: {ok}  [{smi}]")
     record = {
         "card": smi, "seeds": seeds, "num_repeats": args.num_repeats, "wall_s": wall,
-        "evaluations": rows[0], "launches": voigt_cuda.launches,
+        "evaluations": evaluations, "launches": voigt_cuda.launches, "graph": g,
         "per_seed": {str(s): per_seed[s] for s in seeds},
+        "mean_logz": mean, "sd_logz": sd, "mean_within_tolerance": abs(mean - LADDER_LIMIT) < tol,
         "merged_logz": merged_logz, "merged_logzerr": merged_err,
         "gate_tolerance": tol, "all_converged": all_converged, "gate_passed": ok,
     }

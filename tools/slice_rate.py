@@ -7,8 +7,8 @@ Imports ``mcalf_torch`` from DIR (default: this checkout) and runs
 chip_smoke.py's phase 6 with this checkout's chip_smoke.py: the flagship
 slice (testdata/fit.cfg at full width, 10 outer steps, 544 repeats) and the
 narrow flagship's, N times each, through ``mcalf_torch.cli.main`` on one
-CUDA card.  The eager sampler loop is host-bound and its rate drifts with
-the host's load, so compare two checkouts by running this for each in
+CUDA card.  The rate drifts with the host's load (an eager sampler loop's
+far more than a captured one's), so compare two checkouts by running this for each in
 turns, one after the other on the same card.  Prints chip_smoke.py's slice lines and
 a JSON line with every rate.
 """
