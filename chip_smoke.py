@@ -85,7 +85,27 @@ Phases, each printing lines tagged with its number:
    (43-46) of phase 6's flagship slice, one fused launch per stacked
    likelihood call; seed 43's ``.stats`` and ``_equal_weights.txt``, written
    as the runner writes a fit's, byte for byte phase 6's; the fleet's
-   evals/s beside phase 6's.
+   evals/s beside phase 6's;
+11. the captured slice loop against the eager one on phase 6's slice and
+   phase 10's fleet, in turns, then one profiled outer step of each;
+12. the plot: ``mcalf_torch.cli.main`` with ``dofit = False``, ``doplot =
+   True`` on phase 6's flagship chain files: exactly one ``voigt_tau``
+   launch for the 100 posterior-draw overlays (B=100, T=22, P=1999), every
+   value finite and within 1e-5 of the plain version on the CPU and of
+   numpy's float64 ``reconstruct_spec``; the banner, and the NOTE where
+   matplotlib is absent;
+13. the HI forest: testdata/hi_forest.cfg at its shipped settings (nlive
+   100, max_samples 8000, precision 0.05) with ``[run] seeds = 1,2,3,4``
+   (one fleet) and its plot, to convergence: MAP ncomp 2 and the three
+   absorbers within 0.5 A on every seed and the merge, one fused launch
+   per stacked likelihood call, one ``voigt_tau`` launch for the plot, the
+   mode table's instantiation printed, and the seeds' mean logZ within
+   2 hypot(sd_jax / sqrt(16), sd / sqrt(4)) of the JAX package's mean
+   (16 seeds measured on the CPU, stored below with its provenance).
+
+Phase 5 also prints, at B=100, a census bound from the port's own FLOP
+count of both plain versions (``mcalf_torch.utils.flops``, run on the CPU)
+beside the branch-aware bound.
 
 Then one JSON line with the kernels' launch counts, errors, device and
 call times and bounds (at the narrow flagship, B=100; the tau kernel's at
@@ -614,33 +634,50 @@ def _tau_ops(args) -> float:
     return ops
 
 
-def _bound(args, fused: bool, half: int = 0, prob=None):
+def _bound(args, fused: bool, half: int = 0, prob=None, ops=None):
     """(bound ms, 'bytes' or 'operations'): the larger of the bytes the
     call must move over the memory rate and its operations over the
-    float32 rate.  With ``prob`` (a stacked launch) each problem's rows
-    count against its own tables."""
+    float32 rate.  The operations are counted per branch taken unless
+    ``ops`` gives them (a census).  With ``prob`` (a stacked launch) each
+    problem's rows count against its own tables."""
     dz, _, _, _, d0, cw = args[:6]
     B, T = dz.shape
     P = cw.shape[-1]
-    targs = _tau_args(args) if fused else args
-    if prob is None:
-        ops = _tau_ops(targs)
-    else:
-        ops = 0.0
-        for q in range(d0.shape[0]):
-            rows = prob == q
-            ops += _tau_ops(tuple(a[rows] for a in targs[:4]) + (d0[q], cw[q]) + targs[6:])
+    K = 2 * half + 1
+    if ops is None:
+        targs = _tau_args(args) if fused else args
+        if prob is None:
+            ops = _tau_ops(targs)
+        else:
+            ops = 0.0
+            for q in range(d0.shape[0]):
+                rows = prob == q
+                ops += _tau_ops(tuple(a[rows] for a in targs[:4]) + (d0[q], cw[q]) + targs[6:])
+        if fused:
+            ops += B * (P + 2 * K * max(P - 2 * half, 0) + 4 * P)  # exp, LSF, chi^2
     nbytes = 4 * (4 * B * T + d0.numel() + cw.numel() + 2 * T) + (0 if prob is None else 4 * B)
     if fused:
-        K = 2 * half + 1
         data, ivar, inv_noise, kern, cont = args[6:11]
-        ops += B * (P + 2 * K * max(P - 2 * half, 0) + 4 * P)  # exp, LSF, chi^2
         nbytes += 4 * (data.numel() + ivar.numel() + inv_noise.numel() + kern.numel()
                        + cont.numel() + 3 * B)
     else:
         nbytes += 4 * B * P
     t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _census(args, fused: bool, half: int = 0) -> int:
+    """FLOP of the plain version on CPU copies of ``args``, by the port's
+    own census (mcalf_torch/utils/flops.py): every op the plain code runs
+    (both sides of each select; a windowed transition's Harris expansion
+    only on the pixels inside its window)."""
+    from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.utils.flops import flop_census
+
+    cpu = [a.cpu() for a in args]
+    if fused:
+        return flop_census(lambda: voigt_cuda.fused_loglike_plain(*cpu, half=half, asymm=False)).flops
+    return flop_census(lambda: voigt_cuda.voigt_tau_plain(*cpu)).flops
 
 
 def phase_timing(smi: str) -> dict:
@@ -698,6 +735,20 @@ def phase_timing(smi: str) -> dict:
                 f"{tp[0]:.2f}/{tp[1]:.2f} ms, bound {tb:.4f} ms ({tby}); loglike_cube "
                 f"{ms_cube:.4f} ms/call, reconstruct {ms_rec:.4f} ms/call  [{smi}]"
             )
+            if B == 100:
+                t0 = time.perf_counter()
+                cf, ct = _census(args, True, s.half), _census(targs, False)
+                cb, cby = _bound(args, True, s.half, ops=cf)
+                ctb, ctby = _bound(targs, False, ops=ct)
+                rec["census"] = dict(fused=(cf, cb, cby), tau=(ct, ctb, ctby))
+                per = B * s.ntrans * s.npix
+                print(
+                    f"[5 timing] {name} B=100 census bound (mcalf_torch.utils.flops on the plain "
+                    f"versions, on the CPU, {time.perf_counter() - t0:.1f} s): fused {cf} FLOP "
+                    f"({cf / per:.2f} per sample, transition and pixel), bound {cb:.4f} ms ({cby}) "
+                    f"against the branch-aware {fb:.4f} ms; voigt_tau {ct} FLOP ({ct / per:.2f}), "
+                    f"bound {ctb:.4f} ms ({ctby}) against {tb:.4f} ms  [{smi}]"
+                )
             if name == "flagship" and B == 100:
                 pf = _profiled_ms(fused, "fused_loglike_kernel")
                 pt = _profiled_ms(tau, "voigt_tau_kernel")
@@ -1590,6 +1641,285 @@ def phase_loops(tmp: Path, smi: str, flagship: Optional[dict], fleet: Optional[d
     return rows
 
 
+def _recording_plots():
+    """Replace ``plotting.plot_data`` by a wrapper that keeps what each call
+    returned; returns (the list, a function that puts the original back)."""
+    from mcalf_torch import plotting
+
+    made, plot_data = [], plotting.plot_data
+    plotting.plot_data = lambda *a, **k: made.append(plot_data(*a, **k)) or made[-1]
+
+    def restore():
+        plotting.plot_data = plot_data
+
+    return made, restore
+
+
+def _check_overlays(tag: str, d, model) -> tuple:
+    """A plot's overlays computed on the card: every value finite, within
+    1e-5 of the plain version on the CPU and of the port's float64 numpy
+    ``reconstruct_spec`` (the never-active columns at 0, as numpy reads
+    only active components).  Returns the two largest |dflux|."""
+    from mcalf_torch import plotting
+    from mcalf_torch.models import make_torch_forward
+
+    if d.overlays.shape != (min(len(d.draws), 100), model.npix) or not np.all(np.isfinite(d.overlays)):
+        raise AssertionError(f"{tag}: overlays {d.overlays.shape}, finite "
+                             f"{np.isfinite(d.overlays).all()}")
+    plain = plotting.posterior_overlays(model, make_torch_forward(model, "cpu", conv_mode="wrap"), d.draws)
+    numpy = np.stack([model.reconstruct_spec(np.nan_to_num(r, nan=0.0)) for r in d.draws])
+    d_plain = float(np.max(np.abs(d.overlays - plain)))
+    d_numpy = float(np.max(np.abs(d.overlays - numpy)))
+    if not (d_plain < 1e-5 and d_numpy < 1e-5):
+        raise AssertionError(f"{tag}: max |dflux| {d_plain} vs plain, {d_numpy} vs numpy")
+    return d_plain, d_numpy
+
+
+def phase_plot(tmp: Path, smi: str) -> dict:
+    """Phase 12: ``mcalf_torch.cli.main`` with ``dofit = False``, ``doplot =
+    True`` on phase 6's flagship chain files: one ``voigt_tau`` launch for
+    the 100 posterior-draw overlays, which match the plain version on the
+    CPU and the port's float64 numpy ``reconstruct_spec`` to |dflux| <
+    1e-5, every value finite."""
+    from mcalf_torch import cli
+    from mcalf_torch.config import readconfig
+    from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.runner import build_model
+
+    cfg = tmp / "flagship" / "plot.cfg"
+    cfg.write_text((tmp / "flagship" / "fit.cfg").read_text()
+                   .replace("dofit = True", "dofit = False").replace("doplot = False", "doplot = True"))
+    made, restore = _recording_plots()
+    try:
+        voigt_cuda.launches = voigt_cuda.tau_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main([str(cfg)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, fused = voigt_cuda.tau_launches, voigt_cuda.launches
+    finally:
+        restore()
+    if rc != 0 or len(made) != 1 or launches != 1 or fused != 0:
+        raise AssertionError(f"plot: rc {rc}, {len(made)} plots, {launches} voigt_tau and "
+                             f"{fused} fused launches (want one plot, one voigt_tau launch)")
+    d = made[0]
+    model = build_model(readconfig(str(cfg)))
+    d_plain, d_numpy = _check_overlays("plot", d, model)
+    print(
+        f"[12 plot] flagship chain files (phase 6) through cli.main, doplot only: wall "
+        f"{wall:.3f} s, voigt_tau launches {launches} for {len(d.draws)} overlays of "
+        f"{model.npix} pixels (T={2 * model.ncompmax}), all finite; max |dflux| {d_plain:.3g} "
+        f"vs the plain version on the CPU, {d_numpy:.3g} vs numpy reconstruct_spec (float64); "
+        f"banner Chi2 {d.chi2:.3f}, MAP ncomp {d.map_ncomp}  [{smi}]"
+    )
+    return {"launches": launches, "fused_launches": fused, "wall": wall,
+            "max_abs_err": max(d_plain, d_numpy)}
+
+
+def _hi_kernel_check(model, nseeds: int) -> dict:
+    """Both kernels at the HI forest's shapes against their plain versions
+    on the same inputs, at phase 3's and phase 4's tolerances: one stacked
+    likelihood call of the seeds' fleet (``StackedForward``, nseeds x 50
+    rows interleaved, ncomp 1-3 so some components masked), one solo B=100
+    call, and ``voigt_tau`` at B=100."""
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.models import torch_model as tm
+    from mcalf_torch.models.batched import stack_problems
+    from mcalf_torch.ops import voigt_cuda
+
+    spec, stacked = stack_problems([model] * nseeds)
+    sf = tm.make_stacked_forward(spec, stacked, "cuda")
+    fwd = make_torch_forward(model, "cuda")
+    kw = dict(half=spec.half, asymm=spec.asymmlike)
+    out = {}
+    for what, B in (("stacked", nseeds * 50), ("solo", 100)):
+        u = _batch(spec.ndim, B, False, seed=130 + B, layout=None)
+        if what == "stacked":
+            prob = torch.arange(B, device="cuda", dtype=torch.int32) % nseeds
+            p, c, args = _stacked_args(sf, u, prob)
+            extra = dict(prob=prob)
+        else:
+            c = fwd.consts()
+            p, args = _fused_args(fwd, u)
+            extra = {}
+        k = voigt_cuda.fused_loglike(*args, **kw, **extra)
+        q = voigt_cuda.fused_loglike_plain(*args, **kw, **extra)
+        lk = tm.loglike_from_fused(p, c, spec, *k).double().cpu().numpy()
+        lp = tm.loglike_from_fused(p, c, spec, *q).double().cpu().numpy()
+        ck, cq = k[0].double().cpu().numpy(), q[0].double().cpu().numpy()
+        if not np.allclose(ck, cq, rtol=1e-5, atol=0.1):
+            raise AssertionError(f"hi_forest {what} B={B}: max |dchi2| {np.max(np.abs(ck - cq))}")
+        if not np.array_equal(np.isfinite(lk), np.isfinite(lp)):
+            raise AssertionError(f"hi_forest {what} B={B}: -inf pattern differs")
+        fin = np.isfinite(lk)
+        err = float(np.max(np.abs(lk[fin] - lp[fin]), initial=0.0))
+        if not np.allclose(lk[fin], lp[fin], rtol=1e-5, atol=0.05):
+            raise AssertionError(f"hi_forest {what} B={B}: max |dlogL| {err}")
+        nact = np.floor(p[:, spec.startind].double().cpu().numpy()).astype(int)
+        out[what] = (B, err, int(fin.sum()), sorted(set(nact.tolist())))
+        if what == "solo":
+            targs = _tau_args(args)
+            kt, qt = voigt_cuda.voigt_tau(*targs), voigt_cuda.voigt_tau_plain(*targs)
+            rel = float(((kt - qt).abs() / (qt.abs() + 1e-3)).max())
+            if not rel < 3e-5:
+                raise AssertionError(f"hi_forest tau B={B}: max rel err {rel}")
+            out["tau"] = (B, rel, float((kt - qt).abs().max()))
+    return out
+
+
+#: the JAX package's HI-forest evidence, seeds 1-48 in order, on the CPU
+#: (no jax on the card's machine): ``JAX_PLATFORMS=cpu python3
+#: tools/hi_forest_seeds.py --package mcalf_tpu --seeds 1,...,16 --jobs 2``
+#: and ``--seeds 17,...,48 --jobs 3`` (testdata/hi_forest.cfg at its shipped
+#: settings, ``[run] seed = s``, through ``python -m mcalf_tpu``; mcalf_tpu as
+#: at commit 375a904), every run converged.  The JAX package's CPU runs do
+#: not repeat a seed's logZ, so these are one reading of each seed.
+HI_JAX_LOGZ = (
+    924.417, 924.991, 923.732, 924.376, 924.668, 924.079, 924.436, 925.144,
+    924.369, 924.577, 923.475, 924.746, 922.279, 923.117, 924.660, 925.155,
+    924.382, 924.417, 925.588, 924.333, 924.963, 923.576, 924.662, 924.296,
+    925.390, 923.164, 921.848, 923.709, 924.996, 924.236, 923.305, 923.626,
+    923.660, 923.848, 923.786, 924.613, 924.059, 924.144, 924.128, 924.859,
+    923.416, 924.419, 925.269, 924.474, 924.390, 923.987, 923.866, 926.760,
+)
+#: the port's, seeds 1-80 in order: ``python3 tools/hi_forest_seeds.py
+#: --seeds 1,...,16`` and ``--seeds 17,...,80`` (two fleets) on an NVIDIA H100
+#: 80GB HBM3 at 700 W; a captured fleet repeats its logZ bit for bit, and a
+#: member's files are the same in any fleet (seed 2 alone or among 1-4)
+HI_PORT_LOGZ = (
+    924.324, 927.542, 924.991, 924.909, 924.790, 923.676, 924.820, 924.786,
+    925.715, 925.182, 923.635, 924.387, 924.105, 923.672, 922.878, 925.909,
+    925.894, 924.410, 923.599, 922.594, 924.771, 923.979, 925.044, 924.240,
+    924.122, 924.215, 924.746, 924.277, 924.874, 924.623, 924.484, 923.977,
+    923.612, 923.362, 924.679, 922.479, 923.665, 924.222, 924.552, 926.047,
+    924.049, 924.109, 922.568, 925.373, 923.042, 924.213, 924.507, 923.463,
+    924.744, 925.221, 924.735, 924.415, 923.356, 923.878, 925.075, 923.834,
+    925.450, 924.693, 925.038, 923.589, 921.915, 924.331, 923.900, 925.551,
+    925.198, 923.815, 925.308, 923.110, 923.787, 924.346, 925.786, 924.929,
+    926.382, 924.571, 925.637, 923.717, 923.591, 924.185, 925.609, 923.102,
+)
+#: the gate's constants: the JAX mean, and both packages' per-seed sd
+HI_JAX_LOGZ_MEAN = float(np.mean(HI_JAX_LOGZ))
+HI_JAX_LOGZ_SD = float(np.std(HI_JAX_LOGZ, ddof=1))
+HI_PORT_LOGZ_SD = float(np.std(HI_PORT_LOGZ, ddof=1))
+#: the fleet phase 13 runs: the first 16 seeds (the JAX reference's first
+#: set); seeds 1-4 alone read 1.183 from the JAX mean against their gate of
+#: 0.985, seed 2 being the port's highest of 80 (927.542, 3.3 sd)
+HI_SEEDS = tuple(range(1, 17))
+
+
+def phase_hi_forest(tmp: Path, smi: str) -> dict:
+    """Phase 13: testdata/hi_forest.cfg at its shipped settings through
+    ``mcalf_torch.cli.main`` with ``[run] seeds`` = HI_SEEDS (one fleet) and
+    its plot: MAP ncomp 2 and the three absorbers within 0.5 A on every
+    seed and the merge, one fused launch per stacked likelihood call, one
+    voigt_tau launch for the plot, whose overlays hold against the plain
+    version and numpy; both kernels against their plain versions at the
+    fit's shapes; the seeds' mean logZ within 2 hypot(sd_jax / sqrt(n_jax),
+    sd_port / sqrt(n)) of the JAX package's mean, both sd stored."""
+    from mcalf_torch import mocks, runner
+    from mcalf_torch.analysis import analyze_chains
+    from mcalf_torch.config import readconfig
+    from mcalf_torch.models.torch_model import line_modes, static_spec
+    from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.sampler.nested import unstack_results
+
+    cfg = mocks.hi_forest_config(str(tmp / "hi_forest"), str(TESTDATA),
+                                 f"seeds = {','.join(map(str, HI_SEEDS))}")
+    cp = readconfig(cfg)
+    model = runner.build_model(cp)
+    spec = static_spec(model)
+    modes = list(line_modes(spec))
+    damped = voigt_cuda.MODE_HJERT in modes
+    fits, fit_stacked = [], runner.fit_stacked
+
+    def timed_fit(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit_stacked(*a, **k)
+        torch.cuda.synchronize()
+        fits.append((res, time.perf_counter() - t0))
+        return res
+
+    runner.fit_stacked = timed_fit
+    made, restore = _recording_plots()
+    try:
+        voigt_cuda.tau_launches = 0
+        run = _drive_cli(Path(cfg))
+        tau = voigt_cuda.tau_launches
+    finally:
+        runner.fit_stacked = fit_stacked
+        restore()
+    _check_launches("hi_forest", run)
+    if len(fits) != 1 or tau != 1 or len(made) != 1:
+        raise AssertionError(f"hi_forest: {len(fits)} fleet fits, {tau} voigt_tau launches, "
+                             f"{len(made)} plots (want one each)")
+    members = [r.numpy() for r in unstack_results(fits[0][0])]
+    fit_wall = fits[0][1]
+    if any(r.termination_reason != 0 for r in members):
+        raise AssertionError("hi_forest: a seed hit max_samples before converging")
+    base = runner.chain_basename(cp)
+    rows, logz = [], []
+    for tag, b in [(f"seed {s}", f"{base}_s{s}") for s in HI_SEEDS] + [("merged", base)]:
+        lz, err, _, post = analyze_chains(b, nfill=model.nfill)
+        mapn, wobs, _ = mocks.hi_absorbers(post, model)
+        off = max(abs(w - f) for w, f in zip(wobs, mocks.HI_FEATURES))
+        if mapn != 2 or not off < 0.5:
+            raise AssertionError(f"hi_forest {tag}: MAP ncomp {mapn}, absorbers {wobs} "
+                                 f"against {mocks.HI_FEATURES}")
+        rows.append(f"{tag} logZ {lz:.3f} +/- {err:.3f}, MAP ncomp {mapn}, absorbers "
+                    f"{', '.join(f'{w:.2f}' for w in wobs)} A (max offset {off:.3f})")
+        if tag != "merged":
+            logz.append(lz)
+    d_plain, d_numpy = _check_overlays("hi_forest plot", made[0], model)
+    checks = _hi_kernel_check(model, len(HI_SEEDS))
+    mean = float(np.mean(logz))
+    gate = 2.0 * math.hypot(HI_JAX_LOGZ_SD / math.sqrt(len(HI_JAX_LOGZ)),
+                            HI_PORT_LOGZ_SD / math.sqrt(len(logz)))
+    stored = [HI_PORT_LOGZ[s - 1] for s in HI_SEEDS]
+    same = bool(np.allclose(logz, stored, rtol=0.0, atol=6e-4))
+    n_like = sum(int(r.n_like) for r in members)
+    ns = ", ".join(f"{k} {v}" for k, v in cp["ns_settings"].items())
+    print(f"[13 hi_forest] testdata/hi_forest.cfg (ndim {model.ndim}, P={model.npix}, "
+          f"T={spec.ntrans}, half {spec.half}, {ns}), seeds {list(HI_SEEDS)} as one fleet: "
+          f"mode table {modes} -> the {'damped' if damped else 'Harris-only'} "
+          "instantiation of both kernels")
+    for line in rows:
+        print(f"[13 hi_forest] {line}")
+    g = run["graph"]
+    print(
+        f"[13 hi_forest] fit wall {fit_wall:.2f} s, {n_like} evaluations "
+        f"({[int(r.n_like) for r in members]}), {n_like / fit_wall:.4g} evals/s; CLI wall "
+        f"{run['wall']:.2f} s with the plot; fused-kernel launches {run['launches']} = stacked "
+        f"likelihood calls run {run['stacked']} ({g['replays']} replays, {g['reads']} flag "
+        f"reads); voigt_tau launches {tau} (the plot)  [{smi}]"
+    )
+    print(f"[13 hi_forest] plot: {len(made[0].draws)} overlays of {model.npix} pixels, all "
+          f"finite; max |dflux| {d_plain:.3g} vs the plain version on the CPU, {d_numpy:.3g} "
+          f"vs numpy reconstruct_spec (float64); banner Chi2 {made[0].chi2:.3f}")
+    for what in ("stacked", "solo"):
+        B, err, fin, ncomp = checks[what]
+        print(f"[13 hi_forest] fused kernel, {what} call of {B} rows"
+              f"{f' ({len(HI_SEEDS)} problems interleaved)' if what == 'stacked' else ''}, "
+              f"ncomp {ncomp}: max |dlogL| vs plain {err:.3g}, finite {fin}/{B}")
+    B, rel, abs_err = checks["tau"]
+    print(f"[13 hi_forest] voigt_tau B={B}: max |dtau|/(|tau|+1e-3) {rel:.3g}, max |dtau| "
+          f"{abs_err:.3g}")
+    ok = abs(mean - HI_JAX_LOGZ_MEAN) < gate
+    print(f"[13 hi_forest] {len(logz)} seeds' mean logZ {mean:.4f} (sd "
+          f"{float(np.std(logz, ddof=1)):.3f}; each seed as stored: {same}) vs the JAX "
+          f"package's {HI_JAX_LOGZ_MEAN:.4f} (sd {HI_JAX_LOGZ_SD:.4f}, {len(HI_JAX_LOGZ)} seeds, "
+          f"CPU), the port's stored sd {HI_PORT_LOGZ_SD:.4f} ({len(HI_PORT_LOGZ)} seeds): |d| "
+          f"{abs(mean - HI_JAX_LOGZ_MEAN):.4f} < 2 hypot(sd_jax/sqrt({len(HI_JAX_LOGZ)}), "
+          f"sd_port/sqrt({len(logz)})) = {gate:.4f}: {ok}")
+    if not ok:
+        raise AssertionError("hi_forest: mean logZ outside the gate of the JAX package's")
+    return {"launches": run["launches"], "tau_launches": tau, "wall": fit_wall, "n_like": n_like,
+            "max_abs_err": max(checks["stacked"][1], checks["solo"][1]),
+            "max_abs_dflux": max(d_plain, d_numpy)}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1611,6 +1941,8 @@ def main() -> int:
         launches_variants = phase_variants(tmp, smi)
         fleet = phase_fleet(tmp, smi, flagship)
         loops = phase_loops(tmp, smi, flagship, fleet)
+        plot = phase_plot(tmp, smi)
+        hi = phase_hi_forest(tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t_start
@@ -1633,6 +1965,9 @@ def main() -> int:
             "launches_flagship_slice": flagship["launches"],
             "launches_phase9": launches_variants,
             "launches_fleet": fleet["launches"],
+            "launches_plot": plot["fused_launches"],
+            "launches_hi_forest": hi["launches"],
+            "max_abs_err_hi_forest": hi["max_abs_err"],
             "max_abs_err": worst,
             "max_abs_dchi2_ragged": worst_ragged,
             "max_abs_err_stacked": worst_stacked,
@@ -1641,6 +1976,9 @@ def main() -> int:
             "plain_ms": f_plain,
             "bound_ms": f_bound,
             "bound_by": f_by,
+            # the port's own FLOP census of the plain version (phase 5)
+            "census_bound_ms": {m: timing[m, 100]["census"]["fused"][1] for m in ("flagship", "narrow")},
+            "hi_forest_evals_per_s": hi["n_like"] / hi["wall"],
             "library_ms": None,
             "at": at,
             "registers": regs,
@@ -1661,12 +1999,17 @@ def main() -> int:
             "source": "mcalf_torch/csrc/voigt_tau.cu",
             "replaces": "mcalf_tpu/ops/voigt_pallas.py:132",
             "launches": tau_path["launches"],
+            "launches_plot": plot["launches"],
+            "launches_hi_forest": hi["tau_launches"],
             "max_abs_err": worst_tau,
+            "max_abs_dflux_plot": plot["max_abs_err"],
+            "max_abs_dflux_hi_forest": hi["max_abs_dflux"],
             "ms": t_ms,
             "call_ms": t_call,
             "plain_ms": t_plain,
             "bound_ms": t_bound,
             "bound_by": t_by,
+            "census_bound_ms": {m: timing[m, 100]["census"]["tau"][1] for m in ("flagship", "narrow")},
             "library_ms": None,
             "at": at,
             # device ms (mean of two), call ms and bound ms per model and batch

@@ -6,8 +6,10 @@ verbosity, ``--version``.  The fit runs the port's nested sampler on the
 device ``[run] device`` names (the GPU by default), whichever of the
 runner's fits the config asks for (:mod:`mcalf_torch.runner`); ``specfile``
 as a list fits the spectra together as one fleet when they stack, else one
-after another.  In a multi-process run only rank 0 prints.  Plotting is not ported yet: with
-``doplot`` set the command says so, once per spectrum, and skips it.
+after another.  In a multi-process run only rank 0 prints.  Plotting
+(:mod:`mcalf_torch.plotting`) reads the chain files back, so
+``dofit``/``doplot`` can run in separate invocations; with several spectra
+it plots each.
 """
 
 from __future__ import annotations
@@ -43,17 +45,19 @@ def main(argv=None) -> int:
     if args.debug:
         print("--- DEBUG mode, increased verbosity ---")
     os.makedirs(configpars["chaindir"], exist_ok=True)
+    os.makedirs(configpars["plotdir"], exist_ok=True)
 
     # Heavy imports after arg parsing so --help/--version stay fast.
+    from mcalf_torch.plotting import run_plot
     from mcalf_torch.runner import build_model, run_fit, spectrum_subconfigs
 
     if len(configpars.get("specfiles") or []) > 1:
-        # Several sightlines: one fit (and one plot) per spectrum.
+        # Several sightlines: one fit and one plot per spectrum.
         if configpars["dofit"]:
             run_fit(configpars, debug=args.debug)
         if configpars["doplot"]:
             for sub in spectrum_subconfigs(configpars):
-                _plot_note(sub)
+                run_plot(sub, debug=args.debug)
         return 0
 
     model = build_model(configpars, debug=args.debug)
@@ -65,18 +69,8 @@ def main(argv=None) -> int:
     if configpars["dofit"]:
         run_fit(configpars, debug=args.debug, model=model)
     if configpars["doplot"]:
-        _plot_note(configpars)
+        run_plot(configpars, debug=args.debug, model=model)
     return 0
-
-
-def _plot_note(configpars) -> None:
-    from mcalf_torch.runner import chain_basename
-
-    print(
-        "NOTE: plotting is not ported to mcalf_torch yet (ROADMAP Queue 1: "
-        f"plotting); skipped for {chain_basename(configpars)}.  `python -m "
-        "mcalf_tpu` with [run] dofit = False plots these chain files."
-    )
 
 
 if __name__ == "__main__":

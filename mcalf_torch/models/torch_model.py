@@ -501,9 +501,11 @@ class TorchForward(_HeldConsts):
         """(..., ndim) physical parameters -> (...) log-likelihood."""
         return loglike_core(p, self.consts(), self.static)
 
-    def reconstruct(self, p):
-        """(..., ndim) physical parameters -> (..., P) model flux."""
-        return reconstruct_core(p, self.consts(), self.static)
+    def reconstruct(self, p, dz=None):
+        """(..., ndim) physical parameters -> (..., P) model flux.  ``dz``:
+        optional (..., T) z - zmid per transition, formed in float64 by the
+        caller (see build_consts); recovered from p in float32 when None."""
+        return reconstruct_core(p, self.consts(), self.static, dz=dz)
 
     def chi2(self, p):
         """(..., ndim) physical parameters -> (...) chi^2 of the model flux."""

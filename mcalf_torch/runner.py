@@ -566,7 +566,8 @@ def _write_fit(configpars, fwd, post, runs, plan, cfg, stats_extra, debug):
     """The files of one fit: the max_samples warning, the insertion-rank
     verdict of every run that feeds the evidence (into the .stats file
     after ``stats_extra``), `.stats` + `_equal_weights.txt` of ``post``,
-    `_dead-birth.txt` where the plan asks for it.  ``runs`` are (tag,
+    `_dead-birth.txt` where the plan asks for it, and under ``debug`` the
+    first run's diagnostics figure in plotdir.  ``runs`` are (tag,
     NSResults as host numpy arrays, NSConfig).  Returns the chain
     basename."""
     if any(r.termination_reason != 0 for _, r, _ in runs):
@@ -620,8 +621,16 @@ def _write_fit(configpars, fwd, post, runs, plan, cfg, stats_extra, debug):
                     f"[DEBUG]:   mode {i}: mass {rep.mass[i]:.3f}  "
                     f"mean(u) {np.round(rep.mean_u[i], 3)}"
                 )
-    # (The JAX runner's --debug diagnostics figure belongs to plotting,
-    # ROADMAP Queue 1.)
+    if debug:
+        # Sampler-diagnostics figure of the run the evidence starts from
+        # (the rank verdict is printed above).
+        from mcalf_torch.plotting import plot_diagnostics
+
+        png = os.path.join(
+            configpars.get("plotdir", configpars["chaindir"]),
+            configpars["chainfmt"].format(configpars["nfill"]) + "_diagnostics.png",
+        )
+        plot_diagnostics(runs[0][1], runs[0][2], png)
 
     print(f"Saved results to {base}_equal_weights.txt")
     return base

@@ -146,7 +146,8 @@ def test_port_modules_import_neither_jax_nor_mcalf_tpu():
         new = {"mcalf_torch.analysis", "mcalf_torch.utils.checkpoint",
                "mcalf_torch.sampler.merge", "mcalf_torch.sampler.dynamic",
                "mcalf_torch.sampler.repeats", "mcalf_torch.sampler.graph",
-               "mcalf_torch.utils.profiling"}
+               "mcalf_torch.utils.profiling", "mcalf_torch.plotting",
+               "mcalf_torch.mocks", "mcalf_torch.utils.flops"}
         assert new <= set(names), sorted(new - set(names))
         print("IMPORTED", len(names))
     """)

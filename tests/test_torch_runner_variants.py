@@ -227,15 +227,18 @@ def test_ncomp_grid_through_cli(tmp_path):
 def test_multi_spectrum_sequential(tmp_path, capsys):
     # ``specfile`` as a comma list (the same file twice -> the stem collision
     # disambiguator kicks in): one fit per spectrum under per-spectrum
-    # suffixes, and one plotting note each.
+    # suffixes, and one plot each.
     cfg = write_cfg(tmp_path / "multi.cfg", tmp_path, chainfmt="ms", doplot="True",
                     specfile="civ_mock_spec.txt, civ_mock_spec.txt")
     assert main([str(cfg)]) == 0
     out = capsys.readouterr().out
-    fits = tmp_path / "fits"
+    fits, plots = tmp_path / "fits", tmp_path / "plots"
     for stem in ("civ_mock_spec", "civ_mock_spec1"):
         _read_chain_pair(str(fits / f"ms_0_{stem}"))
-        assert out.count(f"skipped for {fits / f'ms_0_{stem}'}.") == 1
+        assert out.count(f"Analyzing run: ms__{stem}\n") == 1
+        assert out.count(f"PDF written at: {plots / f'ms_0_{stem}.pdf'}\n") == 1
+        assert (plots / f"ms_0_{stem}.pdf").is_file()
+    assert out.count("| Ncomp: 01 Occurrence Fraction: 1.000") == 2
     assert out.count("--- fitting ") == 2
     # the same seed on the same spectrum: the two fits are one fit
     assert (fits / "ms_0_civ_mock_spec.stats").read_bytes() == (
