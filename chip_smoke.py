@@ -101,7 +101,20 @@ Phases, each printing lines tagged with its number:
    per stacked likelihood call, one ``voigt_tau`` launch for the plot, the
    mode table's instantiation printed, and the seeds' mean logZ within
    2 hypot(sd_jax / sqrt(16), sd / sqrt(4)) of the JAX package's mean
-   (16 seeds measured on the CPU, stored below with its provenance).
+   (16 seeds measured on the CPU, stored below with its provenance);
+14. the JAX package's last modules: (a) phase 6's flagship slice with
+   ``[ns_settings] bracket = stepout`` through ``cli.main``, captured and
+   with the eager loop: the chain files byte for byte the same, fused
+   launches = likelihood calls run, evaluations and ms per iteration beside
+   the chord's; (b) the step-out bracket's Gaussian battery (the JAX
+   package's tests/test_sampler.py::test_stepout_bracket_evidence: ndim 4,
+   6 seeds) on the card, mean logZ within 0.27 of 0; (c) ``python -m
+   torch.distributed.run --standalone --nproc_per_node 2 -m mcalf_torch`` on
+   phase 6's slice with ``[run] seeds = 43,44,45,46``, both ranks on this
+   card over gloo, every chain file byte for byte a one-process
+   ``cli.main`` run's, each rank's wall and fused launches; (d)
+   ``ops.reference_style`` against the fused kernel at flagship B = 100 and
+   200 (rtol 1e-5, atol 0.05, -inf pattern exact) and their call times.
 
 Phase 5 also prints, at B=100, a census bound from the port's own FLOP
 count of both plain versions (``mcalf_torch.utils.flops``, run on the CPU)
@@ -822,9 +835,10 @@ def _time_stacked(smi: str) -> dict:
 
 
 def _write_cfg(path: Path, outdir: Path, brange=None, run="",
-               max_samples=SLICE_MAX_SAMPLES, num_repeats=SLICE_NUM_REPEATS) -> None:
+               max_samples=SLICE_MAX_SAMPLES, num_repeats=SLICE_NUM_REPEATS, ns="") -> None:
     """A copy of testdata/fit.cfg that writes under ``outdir``, its depth cut
-    by ``max_samples``; ``run`` holds further lines of its [run] section."""
+    by ``max_samples``; ``run`` and ``ns`` hold further lines of its [run]
+    and [ns_settings] sections."""
     text = (TESTDATA / "fit.cfg").read_text()
     text = text.replace("datadir = testdata/", f"datadir = {TESTDATA}/")
     text = text.replace("outdir = testdata/output/", f"outdir = {outdir}/")
@@ -835,6 +849,7 @@ def _write_cfg(path: Path, outdir: Path, brange=None, run="",
         "\n[ns_settings]\n"
         f"max_samples = {max_samples}\n"
         f"num_repeats = {num_repeats}\n"
+        + ns
     )
     path.write_text(text)
 
@@ -1358,7 +1373,7 @@ def _flagship_setup(out: Path):
     _write_cfg(out / "fit.cfg", out)
     cp = readconfig(str(out / "fit.cfg"))
     model = runner.build_model(cp)
-    device = make_mesh()[0]
+    device = make_mesh()[0].device
     plan, cfg, _ = runner._sampler_configs(cp, model, device)
     return cp, model, plan, cfg, device
 
@@ -1920,6 +1935,212 @@ def phase_hi_forest(tmp: Path, smi: str) -> dict:
             "max_abs_dflux": max(d_plain, d_numpy)}
 
 
+#: phase 14 (b): the JAX package's step-out battery
+#: (tests/test_sampler.py::test_stepout_bracket_evidence), its settings and bar
+STEPOUT_BATTERY = dict(ndim=4, sigma=0.06, nlive=100, num_repeats=48, max_samples=4000,
+                       precision_criterion=1e-3, seeds=6, bar=0.27)
+#: phase 14 (c): the seeds of the two-process fleet
+DIST_SEEDS = (43, 44, 45, 46)
+#: phase 14 (c): the time limit of the torchrun call
+DIST_TIMEOUT_S = 600
+
+
+def phase_stepout(tmp: Path, smi: str, flagship: dict) -> dict:
+    """Phase 14 (a): phase 6's flagship slice with ``[ns_settings] bracket =
+    stepout`` through ``cli.main``, captured and then with the eager loop
+    (``runner.nested_sample`` given ``_loop="eager"``): the chain files
+    byte for byte the same, and every likelihood call run one fused
+    launch; evaluations and ms per slice iteration beside phase 6's chord
+    slice."""
+    import functools
+
+    from mcalf_torch import runner
+
+    nested_sample = runner.nested_sample
+    runs = {}
+    for loop in ("captured", "eager"):
+        out = tmp / f"stepout_{loop}"
+        out.mkdir()
+        _write_cfg(out / "fit.cfg", out, ns="bracket = stepout\n")
+        if loop == "eager":
+            runner.nested_sample = functools.partial(nested_sample, _loop="eager")
+        try:
+            run = _drive_cli(out / "fit.cfg")
+        finally:
+            runner.nested_sample = nested_sample
+        if run["rc"] != 0 or len(run["fits"]) != 1:
+            raise AssertionError(f"stepout {loop}: cli.main returned {run['rc']}")
+        res, base = run["fits"][0]
+        _read_chain_pair(base, 2 + 34)
+        g = run["graph"]
+        if run["launches"] != run["batches"] or g["captures"] != (loop == "captured"):
+            raise AssertionError(f"stepout {loop}: {run['launches']} fused launches for "
+                                 f"{run['batches']} likelihood calls run, {g['captures']} graphs")
+        runs[loop] = dict(run=run, res=res, base=base, iterations=run["launches"] - 1)
+    for suffix in (".stats", "_equal_weights.txt"):
+        a, b = (Path(runs[k]["base"] + suffix).read_bytes() for k in ("captured", "eager"))
+        if a != b:
+            raise AssertionError(f"stepout: the captured and eager {suffix} differ")
+    for loop, r in runs.items():
+        res, run = r["res"], r["run"]
+        print(
+            f"[14 stepout] flagship slice, bracket = stepout, {loop}: {res.n_iter} steps, "
+            f"n_like={res.n_like} ({res.n_like / flagship['n_like']:.4f}x the chord's "
+            f"{flagship['n_like']}), logZ {float(res.logz):.3f}, wall {run['wall']:.2f} s, "
+            f"{res.n_like / run['wall']:.4g} evals/s, fused launches {run['launches']} = "
+            f"likelihood calls run {run['batches']}, {r['iterations']} slice iterations run "
+            f"({run['graph']['replays']} replays), {run['wall'] / r['iterations'] * 1e3:.4f} ms "
+            f"per iteration (chord, phase 6: {flagship['wall'] / flagship['iterations'] * 1e3:.4f} "
+            f"ms, {flagship['iterations']} iterations)  [{smi}]"
+        )
+    print("[14 stepout] captured and eager chain files byte for byte the same")
+    cap = runs["captured"]
+    return {"launches": cap["run"]["launches"], "launches_eager": runs["eager"]["run"]["launches"],
+            "n_like": cap["res"].n_like, "chord_n_like": flagship["n_like"],
+            "ms_per_iter": cap["run"]["wall"] / cap["iterations"],
+            "eager_ms_per_iter": runs["eager"]["run"]["wall"] / runs["eager"]["iterations"]}
+
+
+def phase_stepout_battery(smi: str) -> dict:
+    """Phase 14 (b): the step-out bracket's evidence on the card, the JAX
+    package's battery (an isotropic Gaussian, logZ = 0): the mean over its
+    6 seeds within 0.27 of 0."""
+    from mcalf_torch.sampler import NSConfig, nested_sample
+
+    b = STEPOUT_BATTERY
+    ndim, sigma = b["ndim"], b["sigma"]
+    norm = -0.5 * ndim * math.log(2 * math.pi * sigma**2)
+
+    def ll(u):
+        return (norm - 0.5 * torch.sum((u - 0.5) ** 2, dim=-1) / sigma**2).to(torch.float32)
+
+    cfg = NSConfig(ndim=ndim, nlive=b["nlive"], num_repeats=b["num_repeats"],
+                   max_samples=b["max_samples"], precision_criterion=b["precision_criterion"],
+                   bracket="stepout")
+    t0 = time.perf_counter()
+    runs = [nested_sample(ll, torch.Generator(device="cuda").manual_seed(s), cfg, "cuda").numpy()
+            for s in range(b["seeds"])]
+    wall = time.perf_counter() - t0
+    zs = [float(r.logz) for r in runs]
+    mean = float(np.mean(zs))
+    ok = abs(mean) < b["bar"] and all(r.termination_reason == 0 for r in runs)
+    print(f"[14 stepout] Gaussian battery (ndim 4, sigma 0.06, nlive 100, 48 repeats), seeds "
+          f"0-{b['seeds'] - 1}: logZ {[round(z, 4) for z in zs]}, mean {mean:.4f} (|mean| < "
+          f"{b['bar']}: {ok}), evaluations {[r.n_like for r in runs]}, {wall:.2f} s  [{smi}]")
+    if not ok:
+        raise AssertionError(f"stepout battery: mean logZ {mean} outside {b['bar']} of 0")
+    return {"mean_logz": mean, "logz": zs}
+
+
+_RANK_LINE = re.compile(r"mcalf_torch rank (\d+) of (\d+) on (\S+): wall ([\d.]+) s, "
+                        r"fused-kernel launches (\d+)")
+
+
+def phase_distributed(tmp: Path, smi: str) -> dict:
+    """Phase 14 (c): phase 6's flagship slice with ``[run] seeds =
+    43,44,45,46`` through ``python -m torch.distributed.run --standalone
+    --nproc_per_node 2 -m mcalf_torch``, both ranks on this one card, and
+    through ``cli.main`` in this process: every chain file (the seeds'
+    ``_s<seed>`` pairs and the merged one) byte for byte the same."""
+    import os
+    import signal
+
+    dirs = {}
+    for name in ("two", "one"):
+        dirs[name] = d = tmp / f"dist_{name}"
+        d.mkdir()
+        _write_cfg(d / "fit.cfg", d, run=f"seeds = {','.join(map(str, DIST_SEEDS))}")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", "-m", "mcalf_torch", str(dirs["two"] / "fit.cfg")]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"distributed: torchrun ran past {DIST_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"distributed: torchrun exited {proc.returncode}:\n{err[-3000:]}")
+    ranks = {int(m.group(1)): m.groups() for m in _RANK_LINE.finditer(err)}
+    if sorted(ranks) != [0, 1] or any(r[1] != "2" for r in ranks.values()):
+        raise AssertionError(f"distributed: rank lines {ranks}:\n{err[-3000:]}")
+    for r, (_, _, device, w, launches) in sorted(ranks.items()):
+        if device != "cuda:0" or int(launches) == 0:
+            raise AssertionError(f"distributed: rank {r} on {device} with {launches} fused launches")
+    one = _drive_cli(dirs["one"] / "fit.cfg")
+    if one["rc"] != 0:
+        raise AssertionError(f"distributed: the one-process run returned {one['rc']}")
+    names = sorted(p.relative_to(dirs["one"]) for p in dirs["one"].rglob("*")
+                   if p.is_file() and p.name != "fit.cfg")
+    stats = [n for n in names if n.suffix == ".stats"]
+    if len(stats) != len(DIST_SEEDS) + 1 or not all(
+            any(f"_s{s}" in n.name for n in stats) for s in DIST_SEEDS):
+        raise AssertionError(f"distributed: files {names}")  # each seed's and the merged
+    for rel in names:
+        if (dirs["two"] / rel).read_bytes() != (dirs["one"] / rel).read_bytes():
+            raise AssertionError(f"distributed: {rel} differs between two processes and one")
+    walls = {r: float(v[3]) for r, v in ranks.items()}
+    launches = [int(ranks[r][4]) for r in (0, 1)]
+    print(
+        f"[14 distributed] flagship slice, seeds {list(DIST_SEEDS)}: torchrun --nproc_per_node 2 "
+        f"-m mcalf_torch, both ranks on cuda:0 (gloo), wall {wall:.2f} s (rank 0 "
+        f"{walls[0]:.2f} s, rank 1 {walls[1]:.2f} s; fused launches {launches}); one process "
+        f"(cli.main) {one['wall']:.2f} s, {one['launches']} fused launches; {len(names)} chain "
+        f"files byte for byte the same  [{smi}]"
+    )
+    return {"launches": launches, "walls": [walls[0], walls[1]], "wall": wall,
+            "one_wall": one["wall"], "one_launches": one["launches"]}
+
+
+def phase_reference_style(smi: str) -> dict:
+    """Phase 14 (d): ``ops.reference_style`` (the reference's formulation,
+    plain PyTorch) against the fused kernel (``TorchForward.loglike``) on
+    the same flagship rows at B = 100 and 200, log L to rtol 1e-5 / atol
+    0.05 with the -inf pattern exact, and the call time of each (phase 5's
+    CUDA events around single calls): the formulation ratio."""
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.ops.reference_style import make_reference_style_loglike
+
+    model = _model("flagship")
+    fwd = make_torch_forward(model, "cuda")
+    ref = make_reference_style_loglike(model, "cuda")
+    lo, hi = (np.asarray(b, np.float64) for b in zip(*model.bounds))
+    out = {}
+    for B in (100, 200):
+        rng = np.random.default_rng(B)
+        p = torch.from_numpy(
+            (lo + rng.uniform(0.2, 0.8, size=(B, model.ndim)) * (hi - lo)).astype(np.float32)
+        ).cuda()
+        a, b = fwd.loglike(p).cpu().numpy(), ref(p).cpu().numpy()
+        fin = np.isfinite(a)
+        if not np.array_equal(fin, np.isfinite(b)):
+            raise AssertionError(f"reference_style B={B}: the -inf pattern differs")
+        err = float(np.max(np.abs(a[fin] - b[fin]), initial=0.0))
+        if not np.allclose(a[fin], b[fin], rtol=1e-5, atol=0.05):
+            raise AssertionError(f"reference_style B={B}: max |dlogL| {err} past rtol 1e-5, atol 0.05")
+        t_ref = [_median_ms(lambda: ref(p), reps=10)]
+        t_fused = [_median_ms(lambda: fwd.loglike(p)), _median_ms(lambda: fwd.loglike(p))]
+        t_ref.append(_median_ms(lambda: ref(p), reps=10))
+        ratio = float(np.mean(t_ref)) / float(np.mean(t_fused))
+        out[B] = dict(ref_ms=float(np.mean(t_ref)), fused_call_ms=float(np.mean(t_fused)),
+                      ratio=ratio, max_abs_err=err)
+        print(
+            f"[14 reference_style] flagship B={B}: max |dlogL| vs the fused kernel {err:.4g} "
+            f"(rtol 1e-5, atol 0.05; |logL| up to {float(np.max(np.abs(a))):.4g}), finite {fin.sum()}"
+            f"/{B}; call ms reference_style {t_ref[0]:.3f}/{t_ref[1]:.3f}, fused "
+            f"(TorchForward.loglike) {t_fused[0]:.4f}/{t_fused[1]:.4f}: "
+            f"{B / out[B]['fused_call_ms'] * 1e3:.4g} against {B / out[B]['ref_ms'] * 1e3:.4g} "
+            f"evals/s, formulation ratio {ratio:.1f}x  [{smi}]"
+        )
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1943,6 +2164,10 @@ def main() -> int:
         loops = phase_loops(tmp, smi, flagship, fleet)
         plot = phase_plot(tmp, smi)
         hi = phase_hi_forest(tmp, smi)
+        stepout = phase_stepout(tmp, smi, flagship)
+        battery = phase_stepout_battery(smi)
+        dist = phase_distributed(tmp, smi)
+        refstyle = phase_reference_style(smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t_start
@@ -1967,6 +2192,17 @@ def main() -> int:
             "launches_fleet": fleet["launches"],
             "launches_plot": plot["fused_launches"],
             "launches_hi_forest": hi["launches"],
+            # phase 14: the step-out slice captured and eager, and the two
+            # processes of the torchrun fleet (each rank's own count)
+            "launches_stepout": stepout["launches"],
+            "launches_stepout_eager": stepout["launches_eager"],
+            "launches_distributed": dist["launches"],
+            "stepout_evals_ratio_to_chord": stepout["n_like"] / stepout["chord_n_like"],
+            "stepout_battery_mean_logz": battery["mean_logz"],
+            "distributed_rank_walls_s": dist["walls"],
+            # reference_style (plain PyTorch, the reference's formulation)
+            # against this kernel's call at the flagship
+            "reference_style": {f"B={B}": r for B, r in refstyle.items()},
             "max_abs_err_hi_forest": hi["max_abs_err"],
             "max_abs_err": worst,
             "max_abs_dchi2_ragged": worst_ragged,

@@ -6,7 +6,12 @@ verbosity, ``--version``.  The fit runs the port's nested sampler on the
 device ``[run] device`` names (the GPU by default), whichever of the
 runner's fits the config asks for (:mod:`mcalf_torch.runner`); ``specfile``
 as a list fits the spectra together as one fleet when they stack, else one
-after another.  In a multi-process run only rank 0 prints.  Plotting
+after another.  Under ``torchrun --nproc_per_node N -m mcalf_torch
+fit.cfg`` (``WORLD_SIZE`` > 1 in the environment) the processes join one
+group (:func:`mcalf_torch.parallel.init_distributed`) and split a seed
+ensemble or a spectrum list whose count N divides; only rank 0 prints,
+writes the chain files and plots, and each process reports its wall and
+fused-kernel launches in one line on its stderr.  Plotting
 (:mod:`mcalf_torch.plotting`) reads the chain files back, so
 ``dofit``/``doplot`` can run in separate invocations; with several spectra
 it plots each.
@@ -16,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 
 from mcalf_torch import __version__
 from mcalf_torch.config import readconfig
@@ -32,9 +38,45 @@ def main(argv=None) -> int:
 
     configpars = readconfig(args.config)
 
+    distributed = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if not distributed:
+        return _run(args, configpars)
+    import torch
+    import torch.distributed as dist
+
+    from mcalf_torch.parallel import init_distributed
+
+    on_cpu = str(configpars.get("device", "default")).strip().lower() == "cpu"
+    init_distributed(local_device_ids=["cpu"] if on_cpu else None)
+    device = "cpu" if on_cpu else f"cuda:{torch.cuda.current_device()}"
+    t0 = time.perf_counter()
+    rc = _run(args, configpars)
+    _report_rank(time.perf_counter() - t0, device)
+    dist.destroy_process_group()
+    return rc
+
+
+def _report_rank(wall: float, device: str) -> None:
+    """One line per process of a multi-process run, on its stderr (the
+    other ranks' stdout is silenced): its rank, device, wall seconds and
+    fused-kernel launches."""
+    import sys
+
+    import torch.distributed as dist
+
+    from mcalf_torch.ops import voigt_cuda
+
+    print(
+        f"mcalf_torch rank {dist.get_rank()} of {dist.get_world_size()} on {device}: "
+        f"wall {wall:.3f} s, fused-kernel launches {voigt_cuda.launches}",
+        file=sys.stderr, flush=True,
+    )
+
+
+def _run(args, configpars) -> int:
     # Multi-process fleets print from rank 0 only (the reference gates its
     # output to MPI rank 0); is_rank0 initialises nothing.
-    from mcalf_torch.utils.rank import is_rank0
+    from mcalf_torch.utils.rank import is_rank0, writes_files
 
     if not is_rank0():
         import sys
@@ -55,7 +97,7 @@ def main(argv=None) -> int:
         # Several sightlines: one fit and one plot per spectrum.
         if configpars["dofit"]:
             run_fit(configpars, debug=args.debug)
-        if configpars["doplot"]:
+        if configpars["doplot"] and writes_files():
             for sub in spectrum_subconfigs(configpars):
                 run_plot(sub, debug=args.debug)
         return 0
@@ -68,7 +110,7 @@ def main(argv=None) -> int:
         )
     if configpars["dofit"]:
         run_fit(configpars, debug=args.debug, model=model)
-    if configpars["doplot"]:
+    if configpars["doplot"] and writes_files():
         run_plot(configpars, debug=args.debug, model=model)
     return 0
 

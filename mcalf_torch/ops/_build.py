@@ -5,9 +5,10 @@ for ``sm_90a``, into one shared library of plain C entry points, in
 ``build/mcalf_torch/<hash>/`` beside the package (a directory git ignores),
 keyed by a hash of the sources, the shared headers, the generated header
 and the compiler flags, so an edited source rebuilds and an unchanged one
-loads from the cache.  ``--use_fast_math`` is deliberately absent: it would turn
-``expf`` and the divisions into approximations, and the accuracy bars are
-those of full-precision float32.
+loads from the cache; a lock file in that directory makes processes that
+start together build once.  ``--use_fast_math`` is deliberately absent: it
+would turn ``expf`` and the divisions into approximations, and the accuracy
+bars are those of full-precision float32.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine-independent code only needs ``nvcc`` when a CUDA tensor asks
@@ -17,6 +18,7 @@ for a kernel.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import math
@@ -115,20 +117,24 @@ def load() -> BuiltLibrary:
     out_dir = BUILD_ROOT / f"kernels-{key.hexdigest()[:16]}"
     lib_path = out_dir / "libmcalf_kernels.so"
     seconds, log = 0.0, ""
-    if lib_path.exists() and (out_dir / "build.log").exists():
-        log = (out_dir / "build.log").read_text()
-    if not lib_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / "mcalf_coefs.h").write_text(header)
-        tmp = out_dir / f"libmcalf_kernels.so.tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-I", str(CSRC),
-               "-o", str(tmp), *map(str, sources)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {CSRC}/*.cu:\n{log}")
-        os.replace(tmp, lib_path)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # Processes started together (a torchrun fleet) build once: the first
+    # to take the lock builds, the others wait and load its library.
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib_path.exists() and (out_dir / "build.log").exists():
+            log = (out_dir / "build.log").read_text()
+        if not lib_path.exists():
+            (out_dir / "mcalf_coefs.h").write_text(header)
+            tmp = out_dir / f"libmcalf_kernels.so.tmp{os.getpid()}"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-I", str(CSRC),
+                   "-o", str(tmp), *map(str, sources)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + log)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed building {CSRC}/*.cu:\n{log}")
+            os.replace(tmp, lib_path)
     return BuiltLibrary(ctypes.CDLL(str(lib_path)), lib_path, seconds, log)

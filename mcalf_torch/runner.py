@@ -14,7 +14,10 @@ seeds``); the fixed-k grid (``[run] ncomp_grid``); and several spectra
 runs here as one fleet on the card (:mod:`mcalf_torch.parallel`): the seeds
 of an ensemble, and the spectra of a list when they stack (no seeds, no
 ``ncomp_grid``, not dynamic, no ``auto_repeats``, no checkpoints); a member
-writes the files its solo fit would, byte for byte.
+writes the files its solo fit would, byte for byte.  Under a process group
+of W > 1 processes (``torchrun``; :func:`mcalf_torch.parallel.init_distributed`)
+such a fleet is split over the processes where its count divides W, as the
+JAX runner shards it over its devices, and only rank 0 writes files.
 
 ``[run] device``: ``default`` (or ``cuda``/``cuda:N``) fits on the GPU and
 raises when there is none; ``cpu`` is the explicit CPU choice.  A
@@ -37,7 +40,7 @@ from mcalf_torch.atomic import load_atomfile
 from mcalf_torch.io.chains import write_equal_weights, write_stats
 from mcalf_torch.models import AbsorptionModel, make_torch_forward
 from mcalf_torch.models.batched import pad_model_to_npix, stack_problems
-from mcalf_torch.parallel import fit_stacked
+from mcalf_torch.parallel import fit_stacked, make_mesh
 from mcalf_torch.sampler import (
     NSConfig,
     NSResults,
@@ -59,6 +62,7 @@ from mcalf_torch.utils.checkpoint import (
     save_state,
 )
 from mcalf_torch.utils.profiling import phase_timer
+from mcalf_torch.utils.rank import writes_files
 
 KNOWN_SOLVERS = (
     "polychord",
@@ -473,7 +477,9 @@ def run_fit(
                     f"  {tag}step {s.step:5d}  n_dead={s.n_dead:6d}"
                     f"  logZ={float(s.logz):.3f}  logX={float(s.logx):.2f}"
                 )
-            if ckpt_write:
+            # every rank of a process group runs a fit that is not split,
+            # on the same paths: rank 0 alone writes and prunes them
+            if ckpt_write and writes_files():
                 save_state(
                     os.path.join(ckpt_dir, f"{prefix}_{s.step:06d}.npz"),
                     s,
@@ -621,7 +627,7 @@ def _write_fit(configpars, fwd, post, runs, plan, cfg, stats_extra, debug):
                     f"[DEBUG]:   mode {i}: mass {rep.mass[i]:.3f}  "
                     f"mean(u) {np.round(rep.mean_u[i], 3)}"
                 )
-    if debug:
+    if debug and writes_files():
         # Sampler-diagnostics figure of the run the evidence starts from
         # (the rank verdict is printed above).
         from mcalf_torch.plotting import plot_diagnostics
@@ -644,7 +650,9 @@ def _write_dead_birth(path, fwd, *runs):
     Prior-born points get PolyChord's -1e30 birth sentinel instead of -inf.
     Several runs (a dynamic base+boost pair) concatenate: per-point birth
     contours are the canonical representation of a merged/dynamic run.
-    ``runs`` hold host numpy arrays."""
+    ``runs`` hold host numpy arrays.  Rank 0 alone writes."""
+    if not writes_files():
+        return
     rows = []
     for res in runs:
         valid = np.isfinite(np.asarray(res.logw, np.float64))
@@ -658,7 +666,10 @@ def _write_dead_birth(path, fwd, *runs):
 
 def _write_chain_files(base, fwd, post, resample_S, extra_lines=()):
     """Write one `.stats` + `_equal_weights.txt` pair for any posterior
-    carrier (NSResults as host numpy arrays, or a MergedRun)."""
+    carrier (NSResults as host numpy arrays, or a MergedRun); rank 0 of a
+    multi-process run alone writes."""
+    if not writes_files():
+        return
     write_stats(base + ".stats", float(post.logz), float(post.logzerr), extra_lines)
     S = resample_S if resample_S > 0 else int(
         np.isfinite(post.log_posterior_weights).sum()
@@ -667,6 +678,18 @@ def _write_chain_files(base, fwd, post, resample_S, extra_lines=()):
     write_equal_weights(
         base + "_equal_weights.txt", equal_weights_matrix(_physical(fwd, su), logl)
     )
+
+
+def _fleet_mesh(count: int, device) -> list:
+    """The mesh a fleet of ``count`` problems runs on: one entry per process
+    of a process group of W > 1 processes where W divides ``count`` (the
+    JAX runner's condition for its device mesh), else ``device`` alone."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world > 1 and count % world == 0:
+        return make_mesh([device])
+    return [device]
 
 
 def _run_seed_ensemble(configpars, model, fwd, cfg, seeds, resample_S, device, debug=False):
@@ -681,16 +704,19 @@ def _run_seed_ensemble(configpars, model, fwd, cfg, seeds, resample_S, device, d
     simulated-weights error bar.  Per-member chain files get a ``_s<seed>``
     suffix on the ``chainfmt.format(nfill)`` base; the merged posterior
     lands under the base name so the analysis/plot phase works
-    unchanged."""
+    unchanged.  Under a process group the seeds are split over the
+    processes (:func:`_fleet_mesh`); every process gets every member."""
     t0 = datetime.datetime.now()
     spec, stacked = stack_problems(
         [model] * len(seeds), gpriors=model.gpriors is not None
     )
     gens = [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
+    mesh = _fleet_mesh(len(seeds), device)
     if debug:
-        print(f"[DEBUG]: {len(seeds)} seeds as one fleet on {device}")
+        where = f"{len(mesh)} processes" if len(mesh) > 1 else str(device)
+        print(f"[DEBUG]: {len(seeds)} seeds as one fleet on {where}")
     with phase_timer("nested_sampling"):
-        batched = fit_stacked(spec, stacked, cfg, mesh=[device], generators=gens)
+        batched = fit_stacked(spec, stacked, cfg, mesh=mesh, generators=gens)
         runs = [r.numpy() for r in unstack_results(batched)]
     if debug:
         for s, res in zip(seeds, runs):
@@ -743,6 +769,8 @@ def _write_ncomp_table(path, rows) -> int:
     best = int(np.argmax(logzs))
     m = logzs.max()
     logz_trans = m + np.log(np.exp(logzs - m).sum()) - np.log(len(rows))
+    if not writes_files():
+        return best
     with open(path, "w") as f:
         f.write("# k  logZ  logZerr  dlogZ_vs_best\n")
         for k, lz, le in rows:
@@ -786,7 +814,7 @@ def _run_ncomp_grid(configpars, debug=False):
     print(f"ncomp grid: best k = {k} "
           f"(logZ = {float(res.logz):.3f}); table in {table}")
     for suffix in (".stats", "_equal_weights.txt"):
-        if os.path.exists(kbase + suffix):
+        if writes_files() and os.path.exists(kbase + suffix):
             shutil.copyfile(kbase + suffix, base + suffix)
     # The best-k RESULTS (not the bare k): callers rely on run_fit's declared
     # return.  The selected k is in the table and the `_k<k>` chain files.
@@ -872,9 +900,12 @@ def _fit_spectra_stacked(configpars, subs, models, spec, stacked, debug):
     for sub in subs:
         print(f"--- fitting {sub['specfile']} (one fleet of {len(subs)} spectra on {device}) ---")
     gens = [torch.Generator(device=device).manual_seed(seed) for _ in subs]
+    mesh = _fleet_mesh(len(subs), device)
+    if debug and len(mesh) > 1:
+        print(f"[DEBUG]: {len(subs)} spectra split over {len(mesh)} processes")
     t0 = datetime.datetime.now()
     with phase_timer("nested_sampling"):
-        batched = fit_stacked(spec, stacked, cfg, mesh=[device], generators=gens)
+        batched = fit_stacked(spec, stacked, cfg, mesh=mesh, generators=gens)
     print("Execution time {}".format(datetime.datetime.now() - t0))
     out = []
     for sub, m, res in zip(subs, models, unstack_results(batched)):

@@ -35,23 +35,33 @@ the likelihood; nothing falls back to the eager loop.
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Sequence
 
 import torch
 
 from mcalf_torch.utils.profiling import captured_launches
 
-__all__ = ["BlockGraph", "stats", "reset_stats"]
+__all__ = ["BlockGraph", "count", "stats", "reset_stats"]
 
 #: what the captured slice loops of this process did: graphs captured,
 #: replays, slice iterations those replays ran, warm-up iterations, and
 #: host reads of the loop's flags
 stats = dict(captures=0, replays=0, iterations=0, warmups=0, reads=0)
+_stats_lock = threading.Lock()
 
 
 def reset_stats() -> None:
     for k in stats:
         stats[k] = 0
+
+
+def count(**added: int) -> None:
+    """Add to :data:`stats` (from any thread: a fleet's blocks on several
+    local devices run from their own host threads)."""
+    with _stats_lock:
+        for k, n in added.items():
+            stats[k] += n
 
 
 class BlockGraph:
@@ -83,7 +93,7 @@ class BlockGraph:
         self.draw_offset = [g.get_offset() - b for g, b in zip(gens, before)]
         for g, s in zip(gens, saved):
             g.set_state(s)
-        stats["warmups"] += 1
+        count(warmups=1)
 
         self.graph = torch.cuda.CUDAGraph()
         for g in gens:
@@ -91,7 +101,9 @@ class BlockGraph:
         failure = None
         with captured_launches() as self._count_launches:
             try:
-                with torch.cuda.graph(self.graph):
+                # thread_local: another thread's fleet block, capturing or
+                # running on another device, does not break this capture
+                with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
                     try:
                         block()
                     except Exception as e:  # the capture then fails to end, too
@@ -104,10 +116,9 @@ class BlockGraph:
                 "slice loop on a CUDA device runs only as replays of one): "
                 f"{type(failure).__name__}: {failure}"
             ) from failure
-        stats["captures"] += 1
+        count(captures=1)
 
     def replay(self) -> None:
         self.graph.replay()
         self._count_launches()
-        stats["replays"] += 1
-        stats["iterations"] += self.iterations
+        count(replays=1, iterations=self.iterations)

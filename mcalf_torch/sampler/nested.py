@@ -10,10 +10,11 @@ same float32 arithmetic); see that module for the derivations.  In brief:
   per chain, started at distinct random survivors, along directions drawn
   up front from a four-family mixture (whitened per-cluster Gaussian,
   differential evolution, coordinate axes, triplet-restricted DE), with
-  the exact cube-chord bracket and the hard constraint L > L* (the highest
-  deleted likelihood).  Chains advance their passes asynchronously: one
-  batched likelihood call per iteration, each chain moving on to its next
-  pass as soon as it accepts.
+  the exact cube-chord bracket (or, with ``bracket="stepout"``, Neal's
+  bounded step-out intersected with the chord) and the hard constraint
+  L > L* (the highest deleted likelihood).  Chains advance their passes
+  asynchronously: one batched likelihood call per iteration, each chain
+  moving on to its next pass as soon as it accepts.
 * Termination when the live set's remaining evidence falls below
   ``precision_criterion`` of the accumulated one, or at ``max_samples``.
 
@@ -108,9 +109,16 @@ class NSConfig:
     #: label-symmetry gauge fixing layout (startind, ncompmax, nfill[,
     #: ncomp_lo, ncomp_hi]); see AbsorptionModel.canon_layout
     canon_layout: Optional[tuple] = None
-    #: bracket strategy: only "chord" (the exact cube chord) is ported
+    #: bracket strategy for the slice passes: "chord" (the exact cube
+    #: chord, the default) or "stepout" (Neal 2003's step-out with width
+    #: ``stepout_w`` and a randomly split expansion budget
+    #: ``stepout_budget``, intersected with the chord; the JAX package
+    #: measured it unbiased but not cheaper than the chord)
     bracket: str = "chord"
+    #: step-out initial width in t-units of the pass's direction
     stepout_w: float = 2.0
+    #: step-out expansion budget m per pass: J ~ U{0..m-1} steps to the low
+    #: end, K = m-1-J to the high end
     stepout_budget: int = 16
     #: live-point mode clustering at chunk boundaries (1 disables)
     max_clusters: int = 8
@@ -526,13 +534,16 @@ def slice_chains(
     exhausts ``max_shrink`` proposals, starts its next pass at once with
     its next pooled direction.  The loop runs until every chain has made
     ``num_repeats`` passes, with a hard ceiling of num_repeats * max_shrink
-    iterations.  (:func:`_slice_stacked` with one problem.)"""
+    iterations (num_repeats * (max_shrink + stepout_budget + 2) with the
+    step-out bracket).  (:func:`_slice_stacked` with one problem.)"""
     _check_bracket(cfg)
     B = u_start.shape[0]
     pool_d = _direction_pool(gen, surv_u, surv_cluster, cfg, B)
+    so = _stepout_pools(gen, cfg, B, u_start.device)
     u, logl, n_like = _slice_stacked(
         _one_problem(loglike_batch), [gen], u_start[None], logl_start[None],
         pool_d[None], torch.as_tensor(lstar).reshape(1), cfg, [0],
+        so_pools=None if so is None else tuple(t[None] for t in so),
     )
     return u[0], logl[0], n_like[0]
 
@@ -548,11 +559,21 @@ def _one_problem(loglike_batch):
 
 
 def _check_bracket(cfg: NSConfig) -> None:
-    if cfg.bracket != "chord":
-        raise NotImplementedError(
-            f"bracket={cfg.bracket!r} is not ported (only the cube chord); "
-            "ROADMAP Queue 1: stepout bracket and reference_style"
-        )
+    if cfg.bracket not in ("chord", "stepout"):
+        raise ValueError(f"unknown bracket {cfg.bracket!r}: expected 'chord' or 'stepout'")
+
+
+def _stepout_pools(gen, cfg: NSConfig, B: int, device):
+    """The step-out bracket's up-front draws, made after the direction
+    pool's (None for the chord): chain i's pass p places its window at
+    ``u01[p, i]`` (num_repeats, B) float32 and gives ``js[p, i]`` of its
+    expansion budget (int32 in [0, m)) to the low end."""
+    if cfg.bracket != "stepout":
+        return None
+    R = cfg.num_repeats
+    u01 = torch.rand((R, B), generator=gen, dtype=torch.float32, device=device)
+    js = torch.randint(0, int(cfg.stepout_budget), (R, B), generator=gen, device=device)
+    return u01, js.to(torch.int32)
 
 
 #: slice iterations per replayed CUDA graph (sampler/graph.py): a block
@@ -576,6 +597,28 @@ class _Carry(NamedTuple):
     n_like: torch.Tensor    # (Q,) int64 evaluations of problems with a pass to make
 
 
+class _StepoutCarry(NamedTuple):
+    """:class:`_Carry` with the step-out bracket's per-chain, per-pass
+    state: the cube chord, the expansion budget left at each end, and the
+    pass's phase (0: test and expand the low end, 1: the high end, 2:
+    shrink)."""
+
+    u: torch.Tensor
+    logl: torch.Tensor
+    d: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+    it_pass: torch.Tensor
+    passes: torch.Tensor
+    it_total: torch.Tensor
+    n_like: torch.Tensor
+    clo: torch.Tensor       # (Q, B) cube chord along d
+    chi: torch.Tensor       # (Q, B)
+    jlo: torch.Tensor       # (Q, B) int32 expansions left at the low end
+    jhi: torch.Tensor       # (Q, B) int32 at the high end
+    phase: torch.Tensor     # (Q, B) int32
+
+
 class _Fixed(NamedTuple):
     """What the slice loop reads and does not change, and its draw buffer."""
 
@@ -591,18 +634,32 @@ class _Fixed(NamedTuple):
     nrep: int
     total_cap: int
     max_shrink: int
+    #: the step-out bracket's pools (:func:`_stepout_pools`, stacked to
+    #: (Q, num_repeats, B)) and its width and budget; None for the chord
+    u01: Optional[torch.Tensor] = None
+    js: Optional[torch.Tensor] = None
+    stepout: Optional[tuple] = None
 
 
-def _fixed(loglike_rows, gens, pools, lstar, probs, cfg) -> _Fixed:
+def _fixed(loglike_rows, gens, pools, lstar, probs, cfg, so_pools=None) -> _Fixed:
     Q, nrep, B = pools.shape[:3]
     dev = pools.device
+    stepout = None
+    cap = nrep * int(cfg.max_shrink)
+    if cfg.bracket == "stepout":
+        if so_pools is None:
+            raise ValueError("the step-out bracket needs its pools (u01, js)")
+        m = int(cfg.stepout_budget)
+        stepout = (float(cfg.stepout_w), m)
+        cap = nrep * (int(cfg.max_shrink) + m + 2)
     return _Fixed(
         loglike_rows, list(gens), pools, lstar.reshape(Q, 1),
         torch.tensor(probs, dtype=torch.int32, device=dev).repeat_interleave(B),
         torch.zeros((Q, B), dtype=torch.float32, device=dev),
         torch.zeros((2, Q), dtype=torch.int64, device=dev),
         torch.arange(Q, device=dev)[:, None], torch.arange(B, device=dev)[None, :],
-        nrep, nrep * int(cfg.max_shrink), int(cfg.max_shrink),
+        nrep, cap, int(cfg.max_shrink),
+        *((None, None) if stepout is None else so_pools), stepout,
     )
 
 
@@ -619,24 +676,75 @@ def _init_carry(u_start, logl_start, pools) -> _Carry:
     )
 
 
-def _slice_iter(c: _Carry, x: _Fixed, live=None) -> None:
+def _start_pass(x: _Fixed, passes, u_cur):
+    """The step-out window of each chain's pass ``passes`` from ``u_cur``:
+    (d, lo, hi, clo, chi, jlo, jhi, phase).  The window of width w is
+    placed uniformly around t = 0 first, then each end is clamped to the
+    chord on its own: clamping lo before deriving hi would move the window
+    off its uniform placement near a chord end and break the reversibility
+    of Neal's interval procedure (the JAX package measured +0.12 nats on
+    its Gaussian battery).  An end with no budget, or already at the chord,
+    is not tested."""
+    w, m = x.stepout
+    idx = torch.clamp(passes, max=x.nrep - 1).long()
+    d = x.pools[x.arange_q, idx, x.arange_b]
+    clo, chi = _bracket(u_cur, d)
+    lo0 = -x.u01[x.arange_q, idx, x.arange_b] * w
+    lo = torch.maximum(lo0, clo)
+    hi = torch.minimum(lo0 + w, chi)
+    jlo = x.js[x.arange_q, idx, x.arange_b]
+    jhi = (m - 1) - jlo
+    phase = torch.where(
+        (jlo > 0) & (lo > clo), 0, torch.where((jhi > 0) & (hi < chi), 1, 2)
+    ).to(torch.int32)
+    return d, lo, hi, clo, chi, jlo, jhi, phase
+
+
+def _init_loop_carry(u_start, logl_start, x: _Fixed):
+    """The carry at the loop's start: :func:`_init_carry`, or with the
+    step-out bracket its first passes' windows."""
+    c = _init_carry(u_start, logl_start, x.pools)
+    if x.stepout is None:
+        return c
+    d, lo, hi, clo, chi, jlo, jhi, phase = _start_pass(x, c.passes, c.u)
+    return _StepoutCarry(*c._replace(d=d, lo=lo, hi=hi), clo, chi, jlo, jhi, phase)
+
+
+def _slice_iter(c, x: _Fixed, live=None) -> None:
     """One slice iteration of every chain, in place on ``c``: a uniform
-    draw per problem from its generator, one likelihood call, and the
-    accept / shrink / next-pass bookkeeping.  Where a problem has made all
-    its passes, or the loop is past its cap, nothing moves: ``acc`` and
-    ``rej`` are false there, so the carry and ``n_like`` keep their values.
+    draw per problem from its generator into ``x.r``, then
+    :func:`_slice_step`.  Every iteration draws exactly one (B,) batch per
+    problem, in every phase of the step-out bracket too: the set-back of
+    :class:`_SliceBlocks` counts on it.
 
     ``live``: None to draw for, and evaluate the rows of, every problem
     (the static shapes a CUDA graph replays; the rows of a problem that is
     done are evaluated and masked); or (problems, their index tensor, their
     rows) to draw for those alone and evaluate only their rows, as the
     eager loop does."""
+    B = c.logl.shape[1]
+    for q in range(c.logl.shape[0]) if live is None else live[0]:
+        torch.rand((B,), generator=x.gens[q], dtype=torch.float32, device=c.u.device,
+                   out=x.r[q])
+    _slice_step(c, x, live)
+
+
+def _slice_step(c, x: _Fixed, live=None) -> None:
+    """One slice iteration of every chain from the draws in ``x.r``, in
+    place on ``c``: one likelihood call, and the accept / shrink / next-pass
+    bookkeeping (with the step-out bracket, the expansion of a window's
+    ends first: a chain tests its low end, then its high end, then
+    shrinks).  Where a problem has made all its passes, or the loop is past
+    its cap, nothing moves: every phase's mask is false there, so the carry
+    and ``n_like`` keep their values.  ``live`` as in :func:`_slice_iter`."""
     Q, B = c.logl.shape
     dev = c.u.device
-    active = (c.passes < x.nrep) & (c.it_total < x.total_cap)
-    for q in range(Q) if live is None else live[0]:
-        torch.rand((B,), generator=x.gens[q], dtype=torch.float32, device=dev, out=x.r[q])
+    so = x.stepout is not None
+    running = (c.passes < x.nrep) & (c.it_total < x.total_cap)
+    active = running
     t = c.lo + x.r * (c.hi - c.lo)
+    if so:
+        t = torch.where(c.phase == 0, c.lo, torch.where(c.phase == 1, c.hi, t))
     u_prop = c.u + t[..., None] * c.d
     inside = ((u_prop >= 0.0) & (u_prop <= 1.0)).all(dim=-1)
     u_eval = torch.clamp(u_prop, 0.0, 1.0)
@@ -647,21 +755,52 @@ def _slice_iter(c: _Carry, x: _Fixed, live=None) -> None:
         ll_prop = torch.full((Q, B), -math.inf, dtype=torch.float32, device=dev)
         ll_prop[idx] = x.loglike_rows(u_eval[idx].reshape(len(qs) * B, -1), rows).reshape(-1, B)
     ll_prop = torch.where(inside, ll_prop, -math.inf)
-    acc = (ll_prop > x.lstar) & active
+    in_slice = ll_prop > x.lstar
+    lo, hi = c.lo, c.hi
+    if so:
+        # Expansion: while the tested end lies in the slice and its budget
+        # and the chord allow, it moves out by w; an end whose budget or
+        # chord ran out right after a move is done without another test.
+        w, _ = x.stepout
+        p0 = running & (c.phase == 0)
+        p1 = running & (c.phase == 1)
+        grow_lo = p0 & in_slice & (c.jlo > 0) & (lo > c.clo)
+        lo = torch.where(grow_lo, torch.maximum(lo - w, c.clo), lo)
+        jlo = torch.where(grow_lo, c.jlo - 1, c.jlo)
+        stop_lo = (p0 & ~grow_lo) | (grow_lo & ((jlo == 0) | (lo <= c.clo)))
+        grow_hi = p1 & in_slice & (c.jhi > 0) & (hi < c.chi)
+        hi = torch.where(grow_hi, torch.minimum(hi + w, c.chi), hi)
+        jhi = torch.where(grow_hi, c.jhi - 1, c.jhi)
+        stop_hi = (p1 & ~grow_hi) | (grow_hi & ((jhi == 0) | (hi >= c.chi)))
+        phase = torch.where(
+            stop_lo, torch.where((jhi > 0) & (hi < c.chi), 1, 2).to(torch.int32), c.phase
+        )
+        phase = torch.where(stop_hi, 2, phase).to(torch.int32)
+        active = running & (c.phase == 2)  # shrinkage: the chord's own
+    acc = in_slice & active
     u_cur = torch.where(acc[..., None], u_prop, c.u)
     logl_cur = torch.where(acc, ll_prop, c.logl)
     # Rejection shrinks the bracket toward the (unchanged) current point;
     # a chain that exhausts max_shrink proposals keeps its point.
     rej = active & ~acc
     it_pass = torch.where(rej, c.it_pass + 1, c.it_pass)
-    lo = torch.where(rej & (t < 0), t, c.lo)
-    hi = torch.where(rej & (t >= 0), t, c.hi)
+    lo = torch.where(rej & (t < 0), t, lo)
+    hi = torch.where(rej & (t >= 0), t, hi)
     exhausted = rej & (it_pass >= x.max_shrink)
     fin = acc | exhausted
     passes = c.passes + fin.to(torch.int32)
     need = fin & (passes < x.nrep)
-    d_new = x.pools[x.arange_q, torch.clamp(passes, max=x.nrep - 1).long(), x.arange_b]
-    lo_new, hi_new = _bracket(u_cur, d_new)
+    if so:
+        # the next pass starts from the new point
+        d_new, lo_new, hi_new, clo_n, chi_n, jlo_n, jhi_n, ph_n = _start_pass(x, passes, u_cur)
+        c.clo.copy_(torch.where(need, clo_n, c.clo))
+        c.chi.copy_(torch.where(need, chi_n, c.chi))
+        c.jlo.copy_(torch.where(need, jlo_n, jlo))
+        c.jhi.copy_(torch.where(need, jhi_n, jhi))
+        c.phase.copy_(torch.where(need, ph_n, phase))
+    else:
+        d_new = x.pools[x.arange_q, torch.clamp(passes, max=x.nrep - 1).long(), x.arange_b]
+        lo_new, hi_new = _bracket(u_cur, d_new)
     c.d.copy_(torch.where(need[..., None], d_new, c.d))
     c.lo.copy_(torch.where(need, lo_new, lo))
     c.hi.copy_(torch.where(need, hi_new, hi))
@@ -669,7 +808,7 @@ def _slice_iter(c: _Carry, x: _Fixed, live=None) -> None:
     c.u.copy_(u_cur)
     c.logl.copy_(logl_cur)
     c.passes.copy_(passes)
-    c.n_like.add_(active.any(dim=1).to(torch.int64) * B)
+    c.n_like.add_(running.any(dim=1).to(torch.int64) * B)
     c.it_total.add_(1)
 
 
@@ -703,17 +842,18 @@ def _block(c: _Carry, x: _Fixed, k: int) -> None:
 def _block_loop(x: _Fixed, k: int, run_block) -> List[int]:
     """Blocks of k iterations until no problem has a pass to make: the
     first num_repeats // k blocks without a host read (a chain makes at
-    most one pass per iteration, so none can be done sooner), then one
-    read of the (2, Q) status after each block.  Returns each problem's
-    evaluations."""
-    from mcalf_torch.sampler.graph import stats
+    most one pass per iteration, so none can be done sooner; with the
+    step-out bracket too, whose pass ends only in its shrink phase, so
+    takes at least one iteration), then one read of the (2, Q) status
+    after each block.  Returns each problem's evaluations."""
+    from mcalf_torch.sampler.graph import count
 
     for _ in range(x.nrep // k):
         run_block()
     while True:
         run_block()
         running, n_like = x.status.tolist()
-        stats["reads"] += 1
+        count(reads=1)
         if not any(running):
             return n_like
 
@@ -729,20 +869,25 @@ class _SliceBlocks:
     On a CUDA generator that is its Philox offset plus that many times the
     offset one iteration draws; elsewhere the draws are made again."""
 
-    def __init__(self, loglike_rows, gens, probs, pools, cfg, k: int, capture: bool):
+    def __init__(self, loglike_rows, gens, probs, pools, cfg, k: int, capture: bool,
+                 so_pools=None):
         self.x = _fixed(loglike_rows, gens, torch.empty_like(pools),
                         torch.empty((len(gens),), dtype=torch.float32, device=pools.device),
-                        probs, cfg)
+                        probs, cfg,
+                        None if so_pools is None else tuple(map(torch.empty_like, so_pools)))
         self.k, self.capture = k, capture
         self.c = None
         self.graph = None
 
-    def run(self, u_start, logl_start, pools, lstar):
+    def run(self, u_start, logl_start, pools, lstar, so_pools=None):
         x, k = self.x, self.k
         Q, B = logl_start.shape
         x.pools.copy_(pools)
         x.lstar.copy_(lstar.reshape(Q, 1))
-        c0 = _init_carry(u_start, logl_start, x.pools)
+        if x.stepout is not None:
+            x.u01.copy_(so_pools[0])
+            x.js.copy_(so_pools[1])
+        c0 = _init_loop_carry(u_start, logl_start, x)
         if self.c is None:
             self.c = c0
         else:
@@ -754,7 +899,7 @@ class _SliceBlocks:
 
             self.graph = BlockGraph(
                 lambda: _block(c, x, k),
-                lambda: _slice_iter(_Carry(*(t.clone() for t in c)), x),
+                lambda: _slice_iter(type(c)(*(t.clone() for t in c)), x),
                 x.gens, iterations=k,
                 name=getattr(x.loglike_rows, "__qualname__", repr(x.loglike_rows)),
             )
@@ -785,7 +930,7 @@ def _loop_kind(device: torch.device, loop: Optional[str]) -> str:
 
 
 def _slice_stacked(loglike_rows, gens, u_start, logl_start, pools, lstar, cfg, probs,
-                   *, loop=None, graphs=None):
+                   *, loop=None, graphs=None, so_pools=None):
     """:func:`slice_chains` for Q problems at once: chains (Q, B, ndim) from
     ``u_start`` with ``logl_start`` (Q, B), directions ``pools`` (Q,
     num_repeats, B, ndim), constraints ``lstar`` (Q,), problem q's draws
@@ -795,7 +940,8 @@ def _slice_stacked(loglike_rows, gens, u_start, logl_start, pools, lstar, cfg, p
     problem.  Problem q's chains follow exactly the sequence of states and
     draws that :func:`slice_chains` gives it alone, and its generator ends
     where that run leaves it: the loop condition and the uniform draw are
-    per problem.
+    per problem.  ``so_pools``: the step-out bracket's (u01, js) pools, each
+    (Q, num_repeats, B) (:func:`_stepout_pools`); None for the chord.
 
     ``loop`` (:func:`_loop_kind`): on a CUDA device the iterations run as
     replays of a CUDA graph of :data:`BLOCK_ITERATIONS` iterations,
@@ -809,8 +955,8 @@ def _slice_stacked(loglike_rows, gens, u_start, logl_start, pools, lstar, cfg, p
     _check_bracket(cfg)
     loop = _loop_kind(u_start.device, loop)
     if loop == "eager":
-        x = _fixed(loglike_rows, gens, pools, lstar, probs, cfg)
-        c = _init_carry(u_start, logl_start, pools)
+        x = _fixed(loglike_rows, gens, pools, lstar, probs, cfg, so_pools)
+        c = _init_loop_carry(u_start, logl_start, x)
         _eager_loop(c, x)
         return c.u, c.logl, c.n_like.tolist()
     graphs = {} if graphs is None else graphs
@@ -818,8 +964,9 @@ def _slice_stacked(loglike_rows, gens, u_start, logl_start, pools, lstar, cfg, p
     if key not in graphs:
         graphs.clear()
         graphs[key] = _SliceBlocks(loglike_rows, gens, probs, pools, cfg,
-                                   BLOCK_ITERATIONS, capture=loop == "graph")
-    return graphs[key].run(u_start, logl_start, pools, lstar)
+                                   BLOCK_ITERATIONS, capture=loop == "graph",
+                                   so_pools=so_pools)
+    return graphs[key].run(u_start, logl_start, pools, lstar, so_pools)
 
 
 class _Head(NamedTuple):
@@ -839,11 +986,12 @@ class _Head(NamedTuple):
     u_start: torch.Tensor
     logl_start: torch.Tensor
     pool: torch.Tensor
+    so_pool: Optional[tuple]  # the step-out bracket's (u01, js); None for the chord
 
 
 def _head(s: NSState, cfg: NSConfig, gen, cum_dlogx) -> _Head:
     """Delete the B worst live points and draw what the replacements need:
-    start survivors and the direction pool."""
+    start survivors, the direction pool and (step-out) the windows' pools."""
     nlive, B = cfg.nlive, cfg.num_delete
     dev = s.live_u.device
 
@@ -891,6 +1039,7 @@ def _head(s: NSState, cfg: NSConfig, gen, cum_dlogx) -> _Head:
         surv_logl=surv_logl, surv_cluster=surv_cluster, start_idx=start_idx,
         u_start=surv_u[start_idx], logl_start=surv_logl[start_idx],
         pool=_direction_pool(gen, surv_u, surv_cluster, cfg, B),
+        so_pool=_stepout_pools(gen, cfg, B, dev),
     )
 
 
@@ -956,6 +1105,8 @@ def _steps(loglike_rows, states, gens, probs, cfg: NSConfig, cum_dlogx, loop=Non
         torch.stack([h.pool for h in heads]),
         torch.stack([h.lstar for h in heads]),
         cfg, probs, loop=loop, graphs=graphs,
+        so_pools=None if heads[0].so_pool is None else tuple(
+            torch.stack(t) for t in zip(*(h.so_pool for h in heads))),
     )
     return [
         _tail(s, h, u_new[i], logl_new[i], n_evals[i], cfg, g)
@@ -1149,6 +1300,7 @@ def nested_sample_stacked(
     (:func:`_slice_stacked`); ``_loop="eager"`` asks for the loop of one
     host read per iteration instead (the CPU's)."""
     cfg = config.resolved()
+    _check_bracket(cfg)
     Q = len(gens)
     if states is None:
         live_u = [_draw_live(g, cfg, device) for g in gens]

@@ -19,9 +19,10 @@ from __future__ import annotations
 import contextlib
 import os
 import socket
+import threading
 import time
 from collections import defaultdict
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List
 
 _TIMINGS: Dict[str, List[float]] = defaultdict(list)
 
@@ -69,9 +70,13 @@ def trace(trace_dir: str | None = None):
     ))
 
 
-#: launches counted while a CUDA graph is being captured inside
-#: :func:`captured_launches`: the counter's ``add`` -> launches
-_tally: Optional[Dict[Callable[[int], None], int]] = None
+#: serialises every count: blocks of a fleet on several local devices run
+#: from their own host threads (parallel/fleet.py)
+_count_lock = threading.Lock()
+#: per thread, the launches counted while a CUDA graph is being captured
+#: inside :func:`captured_launches` (``.tally``: the counter's ``add`` ->
+#: launches); a capture belongs to the thread that makes it
+_capture = threading.local()
 
 
 def count_launch(add: Callable[[int], None]) -> None:
@@ -83,9 +88,12 @@ def count_launch(add: Callable[[int], None]) -> None:
     import torch
 
     if not torch.cuda.is_current_stream_capturing():
-        add(1)
-    elif _tally is not None:
-        _tally[add] = _tally.get(add, 0) + 1
+        with _count_lock:
+            add(1)
+        return
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally[add] = tally.get(add, 0) + 1
 
 
 @contextlib.contextmanager
@@ -93,15 +101,15 @@ def captured_launches():
     """Tally the launches :func:`count_launch` sees while a graph is
     captured in the block.  Yields the function to call after each replay of
     that graph: it counts the tallied launches once more."""
-    global _tally
-    outer, tally = _tally, {}
-    _tally = tally
+    outer, tally = getattr(_capture, "tally", None), {}
+    _capture.tally = tally
 
     def replayed() -> None:
-        for add, n in tally.items():
-            add(n)
+        with _count_lock:
+            for add, n in tally.items():
+                add(n)
 
     try:
         yield replayed
     finally:
-        _tally = outer
+        _capture.tally = outer

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["is_rank0", "rank0_print"]
+__all__ = ["is_rank0", "rank0_print", "writes_files"]
 
 
 def is_rank0() -> bool:
@@ -36,3 +36,17 @@ def rank0_print(*args, **kwargs) -> None:
     """``print`` that only rank 0 of a multi-process fleet executes."""
     if is_rank0():
         print(*args, **kwargs)
+
+
+def writes_files() -> bool:
+    """True unless this process is a rank other than 0 of an initialised
+    ``torch.distributed`` process group: the processes of one group fit
+    the same problems' blocks and rank 0 alone writes their files.  (A
+    ``RANK`` variable without a group, which still silences printing,
+    leaves a lone process writing its own fit.)"""
+    try:
+        import torch.distributed as dist
+
+        return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+    except Exception:
+        return True

@@ -251,9 +251,20 @@ def test_fit_stacked_checks_the_mesh():
     spec, stacked = stack_problems([_model()] * 3)
     with pytest.raises(ValueError, match=r"number of problems \(3\) must be a multiple of mesh size \(2\)"):
         fit_stacked(spec, stacked, RESUME_CFG, mesh=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="several cards"):
-        fit_stacked(*stack_problems([_model()] * 2), RESUME_CFG, mesh=["cpu", "cpu"])
-    assert make_mesh(["cpu"]) == [torch.device("cpu")]
+    # a 2-entry mesh: each block (one host thread each) is the one-device
+    # fleet of its problems, with those problems' generators
+    models = [_model(), _model("civ_mock_spec_multicomp.txt")] * 2
+    spec, stacked = stack_problems(models)
+    two = fit_stacked(spec, stacked, RESUME_CFG, mesh=["cpu", "cpu"],
+                      generators=[_gen(s) for s in (1, 2, 3, 4)])
+    for lo in (0, 2):
+        one = fit_stacked(*stack_problems(models[lo:lo + 2]), RESUME_CFG, mesh=["cpu"],
+                          generators=[_gen(s) for s in (1, 2, 3, 4)[lo:lo + 2]])
+        for a, b in zip(two, one):
+            want = b.numpy() if torch.is_tensor(b) else b
+            got = a[lo:lo + 2].numpy() if torch.is_tensor(a) else a[lo:lo + 2]
+            np.testing.assert_array_equal(got, want)
+    assert make_mesh(["cpu"]) == [(0, torch.device("cpu"))]
     with pytest.raises(ValueError, match="3 generators for 2 problems"):
         fit_stacked(*stack_problems([_model()] * 2), RESUME_CFG, mesh=["cpu"],
                     generators=[_gen(0)] * 3)

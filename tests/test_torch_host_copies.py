@@ -147,7 +147,15 @@ def test_port_modules_import_neither_jax_nor_mcalf_tpu():
                "mcalf_torch.sampler.merge", "mcalf_torch.sampler.dynamic",
                "mcalf_torch.sampler.repeats", "mcalf_torch.sampler.graph",
                "mcalf_torch.utils.profiling", "mcalf_torch.plotting",
-               "mcalf_torch.mocks", "mcalf_torch.utils.flops"}
+               "mcalf_torch.mocks", "mcalf_torch.utils.flops",
+               "mcalf_torch.ops.reference_style", "mcalf_torch.parallel.fleet"}
+        # the step-out bracket and the process group's entry points, too
+        from mcalf_torch.ops.reference_style import make_reference_style_loglike
+        from mcalf_torch.parallel import init_distributed, make_mesh
+        from mcalf_torch.sampler.nested import _StepoutCarry, _stepout_pools
+        bad = sorted(m for m in sys.modules
+                     if m in ("jax", "mcalf_tpu") or m.startswith(("jax.", "mcalf_tpu.")))
+        assert not bad, bad
         assert new <= set(names), sorted(new - set(names))
         print("IMPORTED", len(names))
     """)

@@ -148,3 +148,39 @@ def test_count_launch_counts_a_captured_launch_per_replay(monkeypatch):
     capturing[0] = True
     tprof.count_launch(add_a)
     assert counts == {"a": 7, "b": 3}
+
+
+def test_counts_survive_threads(monkeypatch):
+    """A fleet's blocks on several local devices run from their own host
+    threads: no launch or loop count is lost between them."""
+    import sys
+    import threading
+
+    from mcalf_torch.sampler import graph
+
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    total = {"n": 0}
+
+    def add(n):
+        total["n"] += n
+
+    def work():
+        for _ in range(2000):
+            tprof.count_launch(add)
+            graph.count(reads=1, iterations=2)
+
+    before = dict(graph.stats)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert total["n"] == 16 * 2000
+    assert graph.stats["reads"] - before["reads"] == 16 * 2000
+    assert graph.stats["iterations"] - before["iterations"] == 2 * 16 * 2000

@@ -196,12 +196,6 @@ def test_chunking_is_deterministic():
     assert runs[0].logz == runs[1].logz and runs[0].n_like == runs[1].n_like
 
 
-def test_stepout_bracket_not_ported():
-    cfg = tn.NSConfig(ndim=NDIM, nlive=20, bracket="stepout")
-    with pytest.raises(NotImplementedError, match="stepout"):
-        tn.nested_sample(torch_gauss, torch.Generator(), cfg, "cpu")
-
-
 def test_cluster_copy_matches_jax():
     rng = np.random.default_rng(2)
     u = np.concatenate([

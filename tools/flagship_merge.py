@@ -1,10 +1,11 @@
 """The flagship fit's two-seed merged evidence on one CUDA card.
 
-    python3 tools/flagship_merge.py [--seeds 43,44] [--num-repeats 544]
+    python3 tools/flagship_merge.py [--seeds 43,44] [--num-repeats 544] [--bracket stepout]
 
 Runs ``testdata/fit.cfg`` (ndim 34, nlive 200) through ``mcalf_torch.cli``
 with ``[run] seeds`` at the bench's rung of 544 repeats, to convergence,
-the seeds as one fleet, and prints the wall time, the evaluations (the
+the seeds as one fleet (``--bracket``: the slice bracket, ``chord`` by
+default or ``stepout``), and prints the wall time, the evaluations (the
 sampler's device counters), the fused-kernel launches (counted per graph
 replay), each seed's logZ and insertion-rank p, their mean and sd, the
 merged logZ and the verdict of the flagship gate: every seed converged,
@@ -56,6 +57,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", default="43,44")
     ap.add_argument("--num-repeats", type=int, default=544)
+    ap.add_argument("--bracket", choices=("chord", "stepout"), default="chord")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flagship_merge: torch finds no CUDA device", file=sys.stderr)
@@ -80,7 +82,7 @@ def main() -> int:
     text = text.replace("datadir = testdata/", f"datadir = {ROOT / 'testdata'}/")
     text = text.replace("outdir = testdata/output/", f"outdir = {out}/")
     text = text.replace("doplot = True", f"doplot = False\nseeds = {args.seeds}")
-    text += f"\n[ns_settings]\nnum_repeats = {args.num_repeats}\n"
+    text += f"\n[ns_settings]\nnum_repeats = {args.num_repeats}\nbracket = {args.bracket}\n"
     cfg = out / "fit.cfg"
     cfg.write_text(text)
 
@@ -129,7 +131,8 @@ def main() -> int:
     logz = np.array([per_seed[s][0] for s in seeds])
     mean, sd = float(logz.mean()), float(logz.std(ddof=1)) if len(seeds) > 1 else 0.0
     g = dict(graph.stats)
-    print(f"[flagship merge] {len(seeds)} seeds at num_repeats={args.num_repeats} as one fleet: "
+    print(f"[flagship merge] {len(seeds)} seeds at num_repeats={args.num_repeats}, bracket "
+          f"{args.bracket}, as one fleet: "
           f"wall {wall:.1f} s, {evaluations} evaluations ({evaluations / wall:.4g} evals/s), "
           f"fused-kernel launches {voigt_cuda.launches} ({g['replays']} graph replays of "
           f"{g['captures']} graphs, {g['reads']} flag reads); per-seed logZ mean {mean:.3f}, sd "
@@ -138,7 +141,8 @@ def main() -> int:
           f"{abs(merged_logz - LADDER_LIMIT):.3f} against {tol:.3f}; every seed converged: "
           f"{all_converged}; gate passed: {ok}  [{smi}]")
     record = {
-        "card": smi, "seeds": seeds, "num_repeats": args.num_repeats, "wall_s": wall,
+        "card": smi, "seeds": seeds, "num_repeats": args.num_repeats, "bracket": args.bracket,
+        "wall_s": wall,
         "evaluations": evaluations, "launches": voigt_cuda.launches, "graph": g,
         "per_seed": {str(s): per_seed[s] for s in seeds},
         "mean_logz": mean, "sd_logz": sd, "mean_within_tolerance": abs(mean - LADDER_LIMIT) < tol,
