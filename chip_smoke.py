@@ -114,7 +114,22 @@ Phases, each printing lines tagged with its number:
    card over gloo, every chain file byte for byte a one-process
    ``cli.main`` run's, each rank's wall and fused launches; (d)
    ``ops.reference_style`` against the fused kernel at flagship B = 100 and
-   200 (rtol 1e-5, atol 0.05, -inf pattern exact) and their call times.
+   200 (rtol 1e-5, atol 0.05, -inf pattern exact) and their call times;
+15. stacked fleets outside ``'same_edge'`` and the calibration studies:
+   (a) the tau kernel's problem axis on the flagship, the narrow flagship
+   and the mixed model (each with its shorter-range twin padded to its
+   pixels), B in {1, 13, 100, 1000} rows of the two problems interleaved
+   at random, against the plain version at the tau bar and every row bit
+   for bit the single-problem launch's, then one 2 x 200-row launch timed
+   against a 400-row one; (b) ``fit_many`` of phase 10's four seeds with
+   ``conv_mode='wrap'``, captured, then eager: members and chain files the
+   same bytes, one ``voigt_tau`` launch per stacked likelihood call run and
+   no fused launch; (c) tools/torch_truth_anchor.py with ``brange = 10,
+   40`` and ``3, 40``: the quadrature logZ within 0.05 of the JAX
+   package's on the same grid (taken on the CPU, stored below), the
+   moments, and the fused kernel's device time at B = 16,384; (d)
+   tools/torch_coverage_study.py at the JAX test's size (32 realizations,
+   nlive 100, max_samples 6000) as one fleet, with its gates.
 
 Phase 5 also prints, at B=100, a census bound from the port's own FLOP
 count of both plain versions (``mcalf_torch.utils.flops``, run on the CPU)
@@ -176,12 +191,15 @@ MODELS = {
                            fitrange=[(6182.0, 6216.0)]),
     "asymmlike_short": dict(_CIV, ncomp=(2, 4), nfill=1, brange=[10.0, 40.0],
                             Asymmlike=True, fitrange=[(6182.0, 6216.0)]),
+    "narrow_short": dict(_CIV, ncomp=(8, 11), brange=[3.0, 40.0],
+                         fitrange=[(6182.0, 6216.0)]),
     "mixed": dict(
         fitrange=[(6180.0, 6220.0)], fitlines=["CIV 1548", "HI 1215"],
         ncomp=(1, 3), nfill=1, specres=[8.0], Nrange=[12.0, 14.5],
         brange=[5.0, 40.0], zrange=[2.99, 3.01],
     ),
 }
+MODELS["mixed_short"] = dict(MODELS["mixed"], fitrange=[(6182.0, 6216.0)])
 
 
 def phase_device() -> str:
@@ -218,14 +236,15 @@ def phase_build() -> dict:
 
 def ptxas_counts(log: str):
     """(function, line) for ptxas's register and spill lines: each kernel's
-    Harris-only and damped instantiation, and the device function they
-    call."""
+    Harris-only and damped instantiation (the tau kernel's each with and
+    without the problem axis), and the device function they call."""
     name = "?"
     for ln in log.splitlines():
         if "entry function" in ln or "Function properties for" in ln:
-            m = re.search(r"(voigt_tau_kernel|fused_loglike_kernel)ILb([01])E", ln)
+            m = re.search(r"(voigt_tau_kernel|fused_loglike_kernel)ILb([01])E(?:Lb([01])E)?", ln)
             if m:
-                name = f"{m[1]}<{'damped' if m[2] == '1' else 'harris'}>"
+                name = (f"{m[1]}<{'damped' if m[2] == '1' else 'harris'}"
+                        f"{', prob' if m[3] == '1' else ''}>")
             elif "wofz_real_916" in ln:
                 name = "wofz_real_916"
         elif "registers" in ln or "spill" in ln:
@@ -1462,25 +1481,43 @@ def _union_us(spans) -> float:
     return total
 
 
-def _profile_window(tag: str, trace_dir: Path, loglike_rows, states, gens, cfg, loop) -> dict:
+#: the kernel a likelihood call launches once, and its wrapper's count
+PROFILED_KERNELS = {"fused_loglike_kernel": "launches", "voigt_tau_kernel": "tau_launches"}
+
+
+def _kernel_class(name: str) -> str:
+    """A device kernel's class in a profile's breakdown."""
+    for k in PROFILED_KERNELS:
+        if k in name:
+            return k
+    if "index" in name.lower() or "gather" in name.lower():
+        return "gathers"
+    return "reductions" if "reduce_kernel" in name else "elementwise and other"
+
+
+def _profile_window(tag: str, trace_dir: Path, loglike_rows, states, gens, cfg, loop,
+                    kernel: str = "fused_loglike_kernel") -> dict:
     """One outer step of the problems in ``states`` under torch.profiler
     (``mcalf_torch.utils.profiling.trace``), after one step outside it that
     captures the graph: CUDA kernel launches, graph launches and host
     synchronisations per slice iteration run, from the trace's runtime
-    events, and the device's busy share of the window's wall (the union of
-    its kernel, copy and set intervals).  The fused kernel's runs in the
-    trace must equal the launches ``voigt_cuda.launches`` counted in the
-    window (a captured launch counts at each replay)."""
+    events, the device's busy share of the window's wall (the union of its
+    kernel, copy and set intervals), and the device time per iteration of
+    each class of kernel (:func:`_kernel_class`) and of the costliest
+    kernels.  ``kernel``'s runs in the trace (the fused kernel, or the tau
+    kernel outside ``'same_edge'``) must equal the launches its wrapper
+    counted in the window (a captured launch counts at each replay)."""
     from mcalf_torch.ops import voigt_cuda
     from mcalf_torch.sampler import nested
     from mcalf_torch.utils.profiling import trace
 
+    counter = PROFILED_KERNELS[kernel]
     cfg = cfg.resolved()
     probs = list(range(len(states)))
     cum = nested._cum_dlogx(cfg, states[0].live_u.device)
     graphs = {}
     states = nested._steps(loglike_rows, states, gens, probs, cfg, cum, loop, graphs)
-    before = voigt_cuda.launches
+    before = getattr(voigt_cuda, counter)
     torch.cuda.synchronize()
     with trace(str(trace_dir / tag)):
         # idle margins: the profiler keeps only device events it dates
@@ -1491,7 +1528,7 @@ def _profile_window(tag: str, trace_dir: Path, loglike_rows, states, gens, cfg, 
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
         time.sleep(TRACE_MARGIN_S)
-    iters = voigt_cuda.launches - before
+    iters = getattr(voigt_cuda, counter) - before
     [path] = (trace_dir / tag).glob("*.json")
     events = json.loads(path.read_text())["traceEvents"]
     runtime = {}
@@ -1500,23 +1537,28 @@ def _profile_window(tag: str, trace_dir: Path, loglike_rows, states, gens, cfg, 
             runtime[e["name"]] = runtime.get(e["name"], 0) + 1
     device = [(e["ts"], e["ts"] + e["dur"]) for e in events
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    fused = sum(1 for e in events
-                if e.get("cat") == "kernel" and "fused_loglike_kernel" in e.get("name", ""))
-    if fused != iters:
+    runs = sum(1 for e in events if e.get("cat") == "kernel" and kernel in e.get("name", ""))
+    if runs != iters:
         graph_launches = {e["args"].get("correlation") for e in events
                           if e.get("cat") == "cuda_runtime" and e["name"] == "cudaGraphLaunch"}
         per_launch = collections.Counter(
             e["args"].get("correlation") for e in events if e.get("cat") == "kernel"
-            and "fused_loglike_kernel" in e.get("name", "")
-            and e["args"].get("correlation") in graph_launches)
+            and kernel in e.get("name", "") and e["args"].get("correlation") in graph_launches)
         raise AssertionError(
-            f"loops: {tag}'s trace holds {fused} fused_loglike_kernel runs, voigt_cuda.launches "
+            f"loops: {tag}'s trace holds {runs} {kernel} runs, voigt_cuda.{counter} "
             f"counted {iters}; runs per cudaGraphLaunch in the trace (runs: launches): "
             f"{dict(collections.Counter(per_launch[c] for c in graph_launches))}")
     busy = _union_us(device)
+    classes, names = collections.Counter(), collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            classes[_kernel_class(e["name"])] += e["dur"] / iters
+            names[e["name"].split("(")[0].removeprefix("void ")[:120]] += e["dur"] / iters
     return {
         "iterations": iters,
-        "fused_kernel_events": fused,
+        "kernel_events": runs,
+        "kernel_us_per_iter": dict(classes.most_common()),
+        "top_kernels_us_per_iter": dict(names.most_common(8)),
         "launches_per_iter": sum(n for k, n in runtime.items()
                                  if k.startswith("cudaLaunchKernel")) / iters,
         "graph_launches_per_iter": runtime.get("cudaGraphLaunch", 0) / iters,
@@ -1646,14 +1688,20 @@ def phase_loops(tmp: Path, smi: str, flagship: Optional[dict], fleet: Optional[d
             busy = "not measured (no device events)" if w["busy_share"] is None else f"{w['busy_share']:.3f}"
             print(
                 f"[11 loops] {name} {loop or 'captured'}, one profiled outer step ({w['iterations']} "
-                f"slice iterations, {w['fused_kernel_events']} fused_loglike_kernel runs in the "
+                f"slice iterations, {w['kernel_events']} fused_loglike_kernel runs in the "
                 f"trace = the launches counted): {w['launches_per_iter']:.2f} CUDA launches, "
                 f"{w['graph_launches_per_iter']:.4f} cudaGraphLaunch and {w['syncs_per_iter']:.4f} "
                 f"syncs per iteration; device busy share {busy}, {w['device_us_per_iter']:.1f} us of "
                 f"device work and {w['wall_ms_per_iter_profiled']:.4f} ms of profiled wall per "
                 f"iteration  [{smi}]"
             )
+            print(f"[11 loops] {name} {loop or 'captured'}: device us per iteration by class "
+                  f"{_rounded(w['kernel_us_per_iter'])}")
     return rows
+
+
+def _rounded(d: dict) -> dict:
+    return {k: round(v, 2) for k, v in d.items()}
 
 
 def _recording_plots():
@@ -2141,6 +2189,367 @@ def phase_reference_style(smi: str) -> dict:
     return out
 
 
+# ---- phase 15: stacked fleets outside 'same_edge', the calibration studies ----
+
+#: phase 15 (a): total rows of the two stacked problems, interleaved at random
+STACKED_TAU_B = (1, 13, 100, 1000)
+#: the JAX package's full quadrature of testdata/civ_mock_spec.txt on the CPU
+#: (jax 0.9.0, XLA likelihood): logZ and the (N, z, b) posterior mean and sd,
+#: by ``JAX_PLATFORMS=cpu python tests/test_torch_truth_anchor.py 10,40``
+#: (and ``3,40``), whose JAX_QUADRATURE holds the same numbers
+JAX_QUADRATURE = {
+    (10.0, 40.0): dict(
+        logz=4985.520790475888,
+        moments={"N": (13.799970399693077, 0.00302712920670298),
+                 "z": (3.00000048025581, 9.473122215751973e-07),
+                 "b": (14.918670666438624, 0.09293213593021848)}),
+    (3.0, 40.0): dict(
+        logz=4985.311086999623,
+        moments={"N": (13.799970399726494, 0.0030271159062394597),
+                 "z": (3.0000004802461393, 9.473072055341726e-07),
+                 "b": (14.918672196773457, 0.09293110943311958)}),
+}
+#: phase 15 (c): the port's quadrature logZ within this of the JAX package's
+QUADRATURE_BAR = 0.05
+#: phase 15 (d): the JAX package's SBC test (tests/test_coverage.py)
+SBC = dict(n_real=32, nlive=100, max_samples=6000)
+
+
+def _tool(name):
+    """A script of tools/ as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_stacked_tau(smi: str) -> dict:
+    """Phase 15 (a): the tau kernel's problem axis.  Two problems stacked
+    (the model and its shorter-range twin padded to its pixels), the rows
+    of both interleaved at random, B rows in all: within the tau bar of the
+    plain version, and every row bit for bit the single-problem launch's.
+    Then the device time of one stacked launch of 2 x 200 rows against one
+    launch of 400 rows of one problem, with its bound."""
+    from mcalf_torch.ops import voigt_cuda
+
+    worst, timing = 0.0, {}
+    for name in ("flagship", "narrow", "mixed"):
+        sf, _ = _stacked_pair(name)
+        s = sf.static
+        for B in STACKED_TAU_B:
+            rng = np.random.default_rng(150 + B)
+            u = _batch(s.ndim, B, False, seed=150 + B, layout=None)
+            prob = torch.from_numpy(rng.integers(0, 2, B).astype(np.int32)).cuda()
+            targs = _tau_args(_stacked_args(sf, u, prob)[2])
+            voigt_cuda.tau_launches = 0
+            k = voigt_cuda.voigt_tau(*targs, prob=prob)
+            q = voigt_cuda.voigt_tau_plain(*targs, prob=prob)
+            torch.cuda.synchronize()
+            if voigt_cuda.tau_launches != 1:
+                raise AssertionError(f"stacked tau {name} B={B}: {voigt_cuda.tau_launches} launches")
+            err = float(((k - q).abs() / (q.abs() + 1e-3)).max())
+            if not err < 3e-5:
+                raise AssertionError(f"stacked tau {name} B={B}: relative |dtau| {err}")
+            for i in range(2):
+                rows = (prob == i).nonzero().squeeze(1)
+                if rows.numel() == 0:
+                    continue
+                one = voigt_cuda.voigt_tau(*(a[rows].contiguous() for a in targs[:4]),
+                                           targs[4][i], targs[5][i], *targs[6:])
+                if not torch.equal(k[rows], one):
+                    raise AssertionError(f"stacked tau {name} B={B}: problem {i}'s rows are not "
+                                         "the single-problem launch's")
+            worst = max(worst, float((k - q).abs().max()))
+            print(f"[15 stacked tau] {name} + {name}_short padded, T={s.ntrans} P={s.npix}, "
+                  f"{B} rows of 2 problems interleaved in one launch "
+                  f"({int((prob == 0).sum())} + {int((prob == 1).sum())}): relative |dtau| "
+                  f"{err:.3g} vs plain, every row bit for bit the single-problem launch's")
+        u = _batch(s.ndim, 400, False, seed=7, layout=None)
+        prob = (torch.arange(400, device="cuda", dtype=torch.int32) % 2).contiguous()
+        targs = _tau_args(_stacked_args(sf, u, prob)[2])
+        single = tuple(targs[:4]) + (targs[4][0], targs[5][0]) + tuple(targs[6:])
+        ms = [_device_ms(lambda: voigt_cuda.voigt_tau(*targs, prob=prob)),
+              _device_ms(lambda: voigt_cuda.voigt_tau(*single))]
+        ms.append(_device_ms(lambda: voigt_cuda.voigt_tau(*targs, prob=prob)))
+        bound, by = _bound(targs, fused=False, prob=prob)
+        timing[name] = dict(ms=(ms[0] + ms[2]) / 2, single_ms=ms[1], bound_ms=bound, bound_by=by)
+        print(f"[15 stacked tau] {name}: one launch of 2 x 200 interleaved rows {ms[0]:.5f}, "
+              f"{ms[2]:.5f} ms (device) against one 400-row launch of one problem "
+              f"{ms[1]:.5f} ms; bound {bound:.5f} ms ({by})  [{smi}]")
+    return {"max_abs_err": worst, "timing": timing}
+
+
+def phase_wrap_fleet(tmp: Path, smi: str, fleet: dict, same_edge_profile: dict) -> dict:
+    """Phase 15 (b): ``fit_many`` of phase 10's four flagship seeds with
+    ``conv_mode='wrap'`` (the likelihood through ``voigt_tau`` with the
+    problem axis, exp, the circular LSF and the chi^2 sum), captured, then
+    the same fleet with the eager loop: members bit for bit and every
+    member's chain files byte for byte the same, one tau launch per stacked
+    likelihood call run and no fused launch in either.  Then one profiled
+    outer step of the captured fleet (:func:`_profile_window`), its device
+    time per iteration by class of kernel beside ``same_edge_profile``,
+    phase 11's of the same fleet in ``'same_edge'``."""
+    from mcalf_torch import runner
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.models.batched import stack_problems
+    from mcalf_torch.models.torch_model import StackedForward, make_stacked_forward
+    from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.parallel import fit_many
+    from mcalf_torch.sampler import finalize, graph, init_state
+    from mcalf_torch.sampler.nested import nested_sample_stacked, unstack_results
+    from mcalf_torch.utils.profiling import count_launch
+
+    cp, model, plan, cfg, device = _flagship_setup(tmp / "wrap_fleet")
+    gp = model.gpriors is not None
+    loglike_cube, calls = StackedForward.loglike_cube, []
+
+    def counted(self, u, prob):  # a call counts when the card runs it
+        count_launch(lambda n: calls.extend([1] * n))
+        return loglike_cube(self, u, prob)
+
+    def gens():
+        return [torch.Generator(device=device).manual_seed(s) for s in FLEET_SEEDS]
+
+    def captured():
+        return [r.numpy() for r in unstack_results(fit_many(
+            [model] * len(FLEET_SEEDS), cfg, mesh=[device], conv_mode="wrap", generators=gens(),
+            gpriors=gp))]
+
+    sf = make_stacked_forward(*stack_problems([model] * len(FLEET_SEEDS), conv_mode="wrap",
+                                              gpriors=gp), device)
+
+    def eager():
+        return [finalize(f, cfg).numpy() for f in nested_sample_stacked(
+            sf.loglike_cube, gens(), cfg, device, _loop="eager")]
+
+    turns = {}
+    StackedForward.loglike_cube = counted
+    try:
+        for name, run in (("captured", captured), ("eager", eager)):
+            calls.clear()
+            voigt_cuda.launches = voigt_cuda.tau_launches = 0
+            graph.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            members = run()
+            torch.cuda.synchronize()
+            turns[name] = dict(members=members, wall=time.perf_counter() - t0, calls=len(calls),
+                               tau=voigt_cuda.tau_launches, fused=voigt_cuda.launches,
+                               graph=dict(graph.stats))
+    finally:
+        StackedForward.loglike_cube = loglike_cube
+    for name, t in turns.items():
+        if t["fused"] != 0 or t["tau"] != t["calls"] or t["calls"] < 2:
+            raise AssertionError(f"wrap fleet {name}: {t['tau']} tau launches and {t['fused']} "
+                                 f"fused launches for {t['calls']} stacked calls run")
+        if (t["graph"]["captures"] > 0) != (name == "captured"):
+            raise AssertionError(f"wrap fleet {name}: {t['graph']['captures']} graphs captured")
+    fwd = make_torch_forward(model, device, conv_mode="wrap", gpriors=gp)
+    for i, (a, b) in enumerate(zip(turns["captured"]["members"], turns["eager"]["members"])):
+        if not (a.n_like == b.n_like and a.logz == b.logz and np.array_equal(a.samples_u, b.samples_u)
+                and np.array_equal(a.logl, b.logl)):
+            raise AssertionError(f"wrap fleet: seed {FLEET_SEEDS[i]} captured differs from eager")
+        files = []
+        for r in (a, b):
+            base = runner._write_fit(cp, fwd, r, [("", r, cfg)], plan, cfg, [], False)
+            files.append([Path(base + x).read_bytes() for x in (".stats", "_equal_weights.txt")])
+        if files[0] != files[1]:
+            raise AssertionError(f"wrap fleet: seed {FLEET_SEEDS[i]}'s captured files differ")
+    out = {}
+    for name, t in turns.items():
+        iters = t["calls"] - 1  # the first call evaluates the four initial live sets
+        n_like = sum(r.n_like for r in t["members"])
+        out[name] = dict(launches=t["tau"], wall=t["wall"], ms_per_iter=t["wall"] / iters * 1e3,
+                         n_like=n_like, replays=t["graph"]["replays"])
+        print(f"[15 wrap fleet] fit_many conv_mode='wrap', seeds {list(FLEET_SEEDS)} of the "
+              f"flagship slice, {name}: wall {t['wall']:.2f} s, {n_like} evaluations, {iters} "
+              f"stacked iterations run ({t['graph']['replays']} replays), {t['tau']} voigt_tau "
+              f"launches = stacked calls run, 0 fused, {t['wall'] / iters * 1e3:.4f} ms per "
+              f"stacked iteration (phase 10 'same_edge': "
+              f"{fleet['wall'] / fleet['iterations'] * 1e3:.4f} ms); logZ "
+              f"{[round(float(r.logz), 3) for r in t['members']]}  [{smi}]")
+    print("[15 wrap fleet] captured and eager members bit for bit, their .stats and "
+          "_equal_weights.txt byte for byte")
+    gens_ = gens()
+    states = [init_state(fwd.loglike_cube, g, cfg, device) for g in gens_]
+    w = _profile_window("wrap_fleet_captured", tmp / "traces", sf.loglike_cube, states, gens_,
+                        cfg, None, kernel="voigt_tau_kernel")
+    out["profile"] = w
+    base = same_edge_profile["kernel_us_per_iter"]
+    print(f"[15 wrap fleet] captured, one profiled outer step ({w['iterations']} slice iterations, "
+          f"{w['kernel_events']} voigt_tau_kernel runs in the trace = the launches counted): "
+          f"{w['launches_per_iter']:.2f} CUDA launches, {w['graph_launches_per_iter']:.4f} "
+          f"cudaGraphLaunch and {w['syncs_per_iter']:.4f} syncs per iteration, "
+          f"{w['device_us_per_iter']:.1f} us of device work (phase 11 'same_edge': "
+          f"{same_edge_profile['device_us_per_iter']:.1f}) and {w['wall_ms_per_iter_profiled']:.4f} "
+          f"ms of profiled wall per iteration (phase 11: "
+          f"{same_edge_profile['wall_ms_per_iter_profiled']:.4f})  [{smi}]")
+    print(f"[15 wrap fleet] device us per iteration by class, 'wrap': "
+          f"{_rounded(w['kernel_us_per_iter'])}; 'same_edge' (phase 11): {_rounded(base)}")
+    print(f"[15 wrap fleet] 'wrap' costliest kernels, us per iteration: "
+          f"{_rounded(w['top_kernels_us_per_iter'])}")
+    return out
+
+
+def phase_quadrature(smi: str) -> dict:
+    """Phase 15 (c): tools/torch_truth_anchor.py on the card, Harris
+    (``brange = 10, 40``) and narrow (``3, 40``, the damped kernel): 22 M
+    likelihood rows in batches of 16,384 through the fused kernel, logZ
+    within QUADRATURE_BAR of the JAX package's on the same grid, one fused
+    launch per batch; the moments beside the JAX package's; then the fused
+    kernel at B = 16,384 against its plain version, on rows drawn from the
+    whole coarse grid and on the fine grid's rows about the peak, and its
+    device time on the latter, with its bound."""
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.ops import voigt_cuda
+
+    ta = _tool("torch_truth_anchor")
+    out = {}
+    for brange, tag in (((10.0, 40.0), "harris"), ((3.0, 40.0), "narrow")):
+        model = ta.make_model(brange=brange)
+        fwd = make_torch_forward(model, "cuda")
+        voigt_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = ta.anchor(ta.torch_loglike(fwd), model.bounds_lo, model.bounds_hi,
+                        log=lambda line: print(f"[15 quadrature] {tag}: {line}"))
+        wall = time.perf_counter() - t0
+        launches = voigt_cuda.launches
+        batches = sum(-(-int(np.prod(g)) // ta.BATCH) for g in (ta.COARSE, ta.FINE))
+        want = JAX_QUADRATURE[brange]
+        d = res["logz"] - want["logz"]
+        print(f"[15 quadrature] {tag} (brange {brange[0]:g}, {brange[1]:g}): logZ "
+              f"{res['logz']:.4f} against the JAX package's {want['logz']:.4f} on the CPU "
+              f"(d = {d:+.4f}, bar {QUADRATURE_BAR}); {res['rows']} rows in {launches} fused "
+              f"launches of up to {ta.BATCH} rows, wall {wall:.2f} s (coarse "
+              f"{res['wall_coarse_s']:.2f}, fine {res['wall_fine_s']:.2f}), "
+              f"{res['rows'] / wall:.4g} rows/s, largest edge weight {res['edge']:.2e}  [{smi}]")
+        for k in "Nzb":
+            (mu, sd), (mu_j, sd_j) = res["moments"][k], want["moments"][k]
+            print(f"[15 quadrature] {tag} posterior {k}: mean {mu:.8f} sd {sd:.8g} (JAX "
+                  f"package, CPU: {mu_j:.8f}, {sd_j:.8g})")
+        if launches != batches:
+            raise AssertionError(f"quadrature {tag}: {launches} fused launches for {batches} batches")
+        if not abs(d) < QUADRATURE_BAR:
+            raise AssertionError(f"quadrature {tag}: logZ {res['logz']} is {d:+.4f} from "
+                                 f"the JAX package's {want['logz']}")
+        # the fused kernel at B = 16,384 against its plain version: rows of
+        # the fine grid about the peak (then timed), and rows drawn from the
+        # whole coarse grid, far from the peak too
+        grids = ta.fine_grids(*(np.linspace(0, 1, n) for n in ta.COARSE),
+                              [int(round(x * (n - 1))) for x, n in zip(res["peak_u"], ta.COARSE)])
+        rows = ta.grid_rows(*grids)
+        mid = rows.shape[0] // 2 - ta.BATCH // 2
+        coarse = ta.grid_rows(*(np.linspace(0, 1, n) for n in ta.COARSE))
+        pick = np.sort(np.random.default_rng(16384).choice(coarse.shape[0], ta.BATCH, replace=False))
+        kw = dict(half=fwd.static.half, asymm=fwd.static.asymmlike)
+        errs = {}
+        for where, batch in (("coarse", coarse[pick]), ("peak", rows[mid:mid + ta.BATCH])):
+            u = torch.from_numpy(batch).cuda()
+            p, args = _fused_args(fwd, u)
+            errs[where] = _fused_against_plain(f"quadrature {tag} {where}", p, fwd.consts(),
+                                               fwd.static, args, kw)
+        print(f"[15 quadrature] {tag}: fused kernel at B={ta.BATCH} against plain on the card, "
+              f"{ta.BATCH} rows drawn from the coarse grid: {errs['coarse'][0]} finite, max "
+              f"|dlogL| {errs['coarse'][1]:.3g}; the fine grid's {ta.BATCH} rows about the peak: "
+              f"{errs['peak'][0]} finite, max |dlogL| {errs['peak'][1]:.3g} (chi2 within rtol "
+              f"1e-5 / atol 0.1, n4/n5 equal, logL within rtol 1e-5 / atol 0.05, -inf exact)")
+        ms = _device_ms(lambda: voigt_cuda.fused_loglike(*args, **kw))
+        bound, by = _bound(args, fused=True, half=fwd.static.half)
+        print(f"[15 quadrature] {tag}: fused kernel at B={ta.BATCH} (T={fwd.static.ntrans}, "
+              f"P={fwd.static.npix}): device {ms:.5f} ms, bound {bound:.5f} ms ({by}), "
+              f"{bound / ms:.1%} of it, {ms / ta.BATCH * 1e6:.3f} ns per row  [{smi}]")
+        out[tag] = dict(logz=res["logz"], d_jax=d, moments=res["moments"], wall=wall,
+                        launches=launches, ms=ms, bound_ms=bound, bound_by=by,
+                        max_abs_err=max(e for _, e in errs.values()))
+    return out
+
+
+def _fused_against_plain(tag: str, p, c, s, args, kw) -> tuple:
+    """The fused kernel and its plain version on the same card tensors:
+    chi2 within rtol 1e-5 / atol 0.1, the asymmlike counts equal, the
+    log-likelihood within rtol 1e-5 / atol 0.05 with the -inf pattern
+    exact.  Returns (finite rows, the largest |dlogL|)."""
+    from mcalf_torch.models import torch_model as tm
+    from mcalf_torch.ops import voigt_cuda
+
+    k = voigt_cuda.fused_loglike(*args, **kw)
+    q = voigt_cuda.fused_loglike_plain(*args, **kw)
+    ck, cq = (x[0].double().cpu().numpy() for x in (k, q))
+    if not np.allclose(ck, cq, rtol=1e-5, atol=0.1):
+        raise AssertionError(f"{tag}: max |dchi2| {np.max(np.abs(ck - cq))} vs plain")
+    if not all(torch.equal(a, b) for a, b in zip(k[1:], q[1:])):
+        raise AssertionError(f"{tag}: n4/n5 differ from plain")
+    lk, lp = (tm.loglike_from_fused(p, c, s, *x).double().cpu().numpy() for x in (k, q))
+    if not np.array_equal(np.isfinite(lk), np.isfinite(lp)):
+        raise AssertionError(f"{tag}: -inf pattern differs from plain")
+    fin = np.isfinite(lk)
+    err = float(np.max(np.abs(lk[fin] - lp[fin]), initial=0.0))
+    if not np.allclose(lk[fin], lp[fin], rtol=1e-5, atol=0.05):
+        raise AssertionError(f"{tag}: max |dlogL| {err} vs plain")
+    return int(fin.sum()), err
+
+
+def phase_sbc(smi: str) -> dict:
+    """Phase 15 (d): tools/torch_coverage_study.py at the JAX test's size
+    (32 realizations, nlive 100, max_samples 6000) as one stacked fleet on
+    the card, with the JAX test's gates: every fit converged, the truths'
+    posterior ranks uniform (Bonferroni KS), 68%/95% coverage within
+    binomial 3 sigma."""
+    from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.sampler import graph
+
+    cov = _tool("torch_coverage_study")
+    voigt_cuda.launches = 0
+    graph.reset_stats()
+    fit = {}
+    out = cov.run_coverage(**SBC, fit_stats=fit)
+    launches, g = voigt_cuda.launches, dict(graph.stats)
+    print(f"[15 sbc] {SBC['n_real']} realizations (P={cov.NPIX}, T=2) as one fleet: wall "
+          f"{fit['wall_s']:.2f} s, {fit['n_like']} evaluations, {launches} fused launches "
+          f"({g['captures']} graphs, {g['replays']} replays), {fit['n_iter_max']} outer steps "
+          f"at most; converged {out['converged_all']}, rank KS p {out['rank_ks_p']} (ok "
+          f"{out['ranks_ok']}), coverage 68% {out['coverage']['0.68']['fraction_per_dim']} "
+          f"95% {out['coverage']['0.95']['fraction_per_dim']} (tol "
+          f"{out['coverage']['0.68']['binomial_3sigma_tol']}, "
+          f"{out['coverage']['0.95']['binomial_3sigma_tol']})  [{smi}]")
+    if not (out["converged_all"] and out["ranks_ok"]
+            and all(out["coverage"][lvl]["ok"] for lvl in ("0.68", "0.95"))):
+        raise AssertionError(f"sbc: a gate failed: {out}")
+    if launches < 1:
+        raise AssertionError("sbc: no fused launch")
+    stacked = _time_q64(cov, smi)
+    return dict(out, launches=launches, wall=fit["wall_s"], q64=stacked)
+
+
+def _time_q64(cov, smi: str) -> dict:
+    """The fused kernel at the SBC tool's default fleet, 64 realizations
+    stacked (Q = 64, P = 300, T = 2): one launch of 100 rows of each,
+    against the plain version (:func:`_fused_against_plain`), its device
+    time and bound."""
+    from mcalf_torch.models.batched import stack_problems
+    from mcalf_torch.models.torch_model import make_stacked_forward
+    from mcalf_torch.ops import voigt_cuda
+
+    Q, B = 64, 100
+    _, problems = cov.make_problems(Q, 20260819, 0.02)
+    spec, stacked = stack_problems(problems)
+    sf = make_stacked_forward(spec, stacked, "cuda")
+    u = _batch(spec.ndim, Q * B, False, seed=Q, layout=None)
+    prob = torch.arange(Q, device="cuda", dtype=torch.int32).repeat_interleave(B)
+    p, c, args = _stacked_args(sf, u, prob)
+    kw = dict(half=spec.half, asymm=spec.asymmlike, prob=prob)
+    fin, err = _fused_against_plain(f"sbc Q={Q}", p, c, spec, args, kw)
+    ms = _device_ms(lambda: voigt_cuda.fused_loglike(*args, **kw))
+    bound, by = _bound(args, fused=True, half=spec.half, prob=prob)
+    print(f"[15 sbc] fused kernel, one stacked launch of {Q} x {B} rows (Q={Q}, T={spec.ntrans}, "
+          f"P={spec.npix}): against plain {fin} finite, max |dlogL| {err:.3g} (chi2 within rtol "
+          f"1e-5 / atol 0.1, n4/n5 equal, logL within rtol 1e-5 / atol 0.05, -inf exact), device "
+          f"{ms:.5f} ms, bound {bound:.5f} ms ({by}), {bound / ms:.1%} of it  [{smi}]")
+    return dict(ms=ms, bound_ms=bound, bound_by=by, rows=Q * B, max_abs_err=err)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2168,6 +2577,10 @@ def main() -> int:
         battery = phase_stepout_battery(smi)
         dist = phase_distributed(tmp, smi)
         refstyle = phase_reference_style(smi)
+        stacked_tau = phase_stacked_tau(smi)
+        wrap = phase_wrap_fleet(tmp, smi, fleet, loops["fleet"]["profile_captured"])
+        quad = phase_quadrature(smi)
+        sbc = phase_sbc(smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t_start
@@ -2204,6 +2617,14 @@ def main() -> int:
             # against this kernel's call at the flagship
             "reference_style": {f"B={B}": r for B, r in refstyle.items()},
             "max_abs_err_hi_forest": hi["max_abs_err"],
+            # phase 15 (c): the quadrature's batches of 16,384 rows, and the
+            # kernel's device time at that B; (d): the SBC fleet of 32
+            "launches_quadrature": {k: v["launches"] for k, v in quad.items()},
+            "quadrature_logz": {k: v["logz"] for k, v in quad.items()},
+            "B16384": {k: {m: v[m] for m in ("ms", "bound_ms", "bound_by", "max_abs_err")}
+                       for k, v in quad.items()},
+            "launches_sbc": sbc["launches"],
+            "Q64": sbc["q64"],
             "max_abs_err": worst,
             "max_abs_dchi2_ragged": worst_ragged,
             "max_abs_err_stacked": worst_stacked,
@@ -2237,7 +2658,15 @@ def main() -> int:
             "launches": tau_path["launches"],
             "launches_plot": plot["launches"],
             "launches_hi_forest": hi["tau_launches"],
+            # phase 15 (b): the 'wrap' fleet, one launch per stacked call
+            "launches_wrap_fleet": wrap["captured"]["launches"],
+            "launches_wrap_fleet_eager": wrap["eager"]["launches"],
+            "wrap_fleet_ms_per_iter": {k: wrap[k]["ms_per_iter"] for k in ("captured", "eager")},
+            "wrap_fleet_device_us_per_iter": wrap["profile"]["kernel_us_per_iter"],
             "max_abs_err": worst_tau,
+            # phase 15 (a): the problem axis, and one 2 x 200-row launch
+            "max_abs_err_stacked": stacked_tau["max_abs_err"],
+            "stacked": stacked_tau["timing"],
             "max_abs_dflux_plot": plot["max_abs_err"],
             "max_abs_dflux_hi_forest": hi["max_abs_dflux"],
             "ms": t_ms,

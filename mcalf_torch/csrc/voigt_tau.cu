@@ -33,9 +33,16 @@
 //     wave of CTAs, which fills each group's tables once per run, measured
 //     slower in every cell on an H100: the card's own scheduling of many
 //     short CTAs evens out the data-dependent cost of the tiles better.
+//   * An optional problem axis (kProb, the fused kernel's pattern): given
+//     prob (B,), sample b reads problem prob[b]'s d0 (Q, T, P) rows and
+//     c/lambda (Q, P) row, so one launch serves the stacked problems of a
+//     fleet whatever order their rows come in.  The groups stay groups of S
+//     consecutive rows, which may span problems: each sample of a group
+//     keeps its own d0 column and c, and loads them itself.
 // Per element the order of operations is the previous one-sample kernel's
 // (the same fused multiply-add for u, the Harris transitions then the damped
-// ones, each in ascending t), so tau is bit for bit the same.
+// ones, each in ascending t), so tau is bit for bit the same, and a stacked
+// row is bit for bit its problem's single-problem launch.
 
 #include <cuda_runtime.h>
 
@@ -120,35 +127,48 @@ __device__ __forceinline__ void load_group(
   __syncthreads();
 }
 
-// tau at one pixel (c = c/lambda there) of the first N samples of a group
-// of S, written to out[s P]: the per-sample arithmetic of mcalf::tau_at,
-// N sums in flight.  d0col points at the pixel's d0[0, p], rows P floats
-// apart; neighbouring threads take neighbouring pixels, so the reads are
-// coalesced and the table stays resident in L2.
-template <bool kDamped, int N>
+// tau at one pixel of the first N samples of a group of S, written to
+// out[s P]: the per-sample arithmetic of mcalf::tau_at, N sums in flight.
+// d0col[j] points at the pixel's d0[0, p] (rows P floats apart) and c[j] is
+// c/lambda there, for j < kCols: one column shared by the group (kCols = 1),
+// or with the problem axis one per sample (kCols = N, sample s's is j = s).
+// Neighbouring threads take neighbouring pixels, so the reads are coalesced
+// and the table stays resident in L2.
+template <bool kDamped, bool kProb, int N>
 __device__ __forceinline__ void group_tau(const float4* rec, const float* den,
                                           int S, int T, int P,
-                                          const float* __restrict__ d0col,
-                                          float c, float* __restrict__ out) {
+                                          const float* const* d0col,
+                                          const float* c, float* __restrict__ out) {
+  constexpr int kCols = kProb ? N : 1;
   float tau[N];
 #pragma unroll
   for (int s = 0; s < N; ++s) tau[s] = 0.0f;
   // Each transition's d0 is loaded one transition ahead, so its L2 latency
   // overlaps the previous transition's H.
-  const float* d0p = d0col;
-  float dnext = T > 0 ? *d0p : 0.0f;
+  const float* d0p[kCols];
+  float dnext[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    d0p[j] = d0col[j];
+    dnext[j] = T > 0 ? *d0p[j] : 0.0f;
+  }
   const int nh = (kDamped && !mcalf::any_harris) ? 0 : T;  // skip an idle loop
   for (int t = 0; t < nh; ++t) {
-    const float d = dnext;
-    d0p += P;
-    if (t + 1 < T) dnext = *d0p;
+    float d[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      d[j] = dnext[j];
+      d0p[j] += P;
+      if (t + 1 < T) dnext[j] = *d0p[j];
+    }
     const float4* r = rec + 2 * S * t;
     if (kDamped && __float_as_int(r[1].w) == 2) continue;  // mode: same for all s
 #pragma unroll
     for (int s = 0; s < N; ++s) {
+      const int j = kProb ? s : 0;
       const float4 q = r[2 * s];          // dz, 1/dnu, gain, a
       const float thr = r[2 * s + 1].x;   // tmin, +inf in mode 0
-      const float u = (d + q.x * c) * q.y;
+      const float u = (d[j] + q.x * c[j]) * q.y;
       const float u2 = u * u;
       const float H = !(u2 < thr) ? mcalf::hjert_wing(u2, q.w)
                                   : mcalf::hjert_harris(u2, q.w);
@@ -156,16 +176,18 @@ __device__ __forceinline__ void group_tau(const float4* rec, const float* den,
     }
   }
   if (kDamped) {
-    d0p = d0col;
-    for (int t = 0; t < T; ++t, d0p += P) {
+    for (int t = 0; t < T; ++t) {
       const float4* r = rec + 2 * S * t;
       if (__float_as_int(r[1].w) != 2) continue;
-      const float d = *d0p;
+      float d[kCols];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) d[j] = d0col[j][static_cast<size_t>(t) * P];
 #pragma unroll
       for (int s = 0; s < N; ++s) {
+        const int j = kProb ? s : 0;
         const float4 q = r[2 * s];
         const float4 w = r[2 * s + 1];  // tmin, erfcx(a), sigma1, mode
-        const float u = (d + q.x * c) * q.y;
+        const float u = (d[j] + q.x * c[j]) * q.y;
         const float a = q.w;
         const float H =
             (u * u + a * a < MCALF_R2_SWITCH)
@@ -180,17 +202,19 @@ __device__ __forceinline__ void group_tau(const float4* rec, const float* den,
 }
 
 // CTA i takes pixel tile i % ntiles (blockDim.x pixels, one per thread) of
-// sample group i / ntiles, samples [g S, min(g S + S, B)).
-template <bool kDamped>
+// sample group i / ntiles, samples [g S, min(g S + S, B)).  With the problem
+// axis (kProb) sample b's tables are problem prob[b]'s.
+template <bool kDamped, bool kProb>
 __global__ void __launch_bounds__(kMaxThreads, kDamped ? kDampedMinCtas : kHarrisMinCtas)
 voigt_tau_kernel(const float* __restrict__ dz,    // (B, T)
                  const float* __restrict__ gain,  // (B, T)
                  const float* __restrict__ av,    // (B, T)
                  const float* __restrict__ dnu,   // (B, T)
-                 const float* __restrict__ d0,    // (T, P)
-                 const float* __restrict__ cw,    // (P,)
+                 const float* __restrict__ d0,    // (T, P), or (Q, T, P) with prob
+                 const float* __restrict__ cw,    // (P,), or (Q, P) with prob
                  const float* __restrict__ tmin,  // (T,) mode-1 thresholds
                  const int* __restrict__ mode,    // (T,) 0, 1 or 2
+                 const int* __restrict__ prob,    // (B,) problem per sample, or null
                  float* __restrict__ tau,         // (B, P)
                  int B, int T, int P, int S, int ntiles) {
   extern __shared__ float4 smem_raw[];  // 16-byte aligned records
@@ -202,20 +226,31 @@ voigt_tau_kernel(const float* __restrict__ dz,    // (B, T)
   load_group<kDamped>(rec, den, S, b0, n, T, dz, gain, av, dnu, tmin, mode);
   const int p = (blockIdx.x - g * ntiles) * blockDim.x + threadIdx.x;
   if (p >= P) return;
-  const float c = cw[p];
+  constexpr int kMax = kDamped ? kDampedMaxSamples : kHarrisMaxSamples;
+  constexpr int kCols = kProb ? kMax : 1;
+  const float* col[kCols];
+  float c[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    // a sample past the group's n takes the group's first problem: its
+    // column is read ahead but never used
+    const size_t q = kProb ? static_cast<size_t>(prob[b0 + (j < n ? j : 0)]) : 0;
+    col[j] = d0 + q * T * P + p;
+    c[j] = cw[q * P + p];
+  }
   float* out = tau + static_cast<size_t>(b0) * P + p;
   // n is uniform across the CTA
   if constexpr (kDamped) {
     static_assert(kDampedMaxSamples == 2, "the damped kernel takes 1 or 2 samples");
-    if (n == 2) group_tau<true, 2>(rec, den, S, T, P, d0 + p, c, out);
-    else group_tau<true, 1>(rec, den, S, T, P, d0 + p, c, out);
+    if (n == 2) group_tau<true, kProb, 2>(rec, den, S, T, P, col, c, out);
+    else group_tau<true, kProb, 1>(rec, den, S, T, P, col, c, out);
   } else {
     static_assert(kHarrisMaxSamples == 4, "the Harris-only kernel takes 1 to 4 samples");
     switch (n) {
-      case 4: group_tau<false, 4>(rec, den, S, T, P, d0 + p, c, out); break;
-      case 3: group_tau<false, 3>(rec, den, S, T, P, d0 + p, c, out); break;
-      case 2: group_tau<false, 2>(rec, den, S, T, P, d0 + p, c, out); break;
-      default: group_tau<false, 1>(rec, den, S, T, P, d0 + p, c, out); break;
+      case 4: group_tau<false, kProb, 4>(rec, den, S, T, P, col, c, out); break;
+      case 3: group_tau<false, kProb, 3>(rec, den, S, T, P, col, c, out); break;
+      case 2: group_tau<false, kProb, 2>(rec, den, S, T, P, col, c, out); break;
+      default: group_tau<false, kProb, 1>(rec, den, S, T, P, col, c, out); break;
     }
   }
 }
@@ -232,57 +267,65 @@ bool geometry_ok(int B, int T, int P, int S, int threads, int ntiles, int grid,
          static_cast<size_t>(smem) >= group_smem(T, S);
 }
 
-template <bool kDamped>
+template <bool kDamped, bool kProb>
 cudaError_t allow_smem(int smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(voigt_tau_kernel<kDamped>,
+  return cudaFuncSetAttribute(voigt_tau_kernel<kDamped, kProb>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <bool kDamped>
+template <bool kDamped, bool kProb>
 cudaError_t launch(const float* dz, const float* gain, const float* av,
                    const float* dnu, const float* d0, const float* cw,
-                   const float* tmin, const int* mode, float* tau, int B, int T,
-                   int P, int S, int threads, int ntiles, int grid, int smem,
-                   void* stream) {
+                   const float* tmin, const int* mode, const int* prob, float* tau,
+                   int B, int T, int P, int S, int threads, int ntiles, int grid,
+                   int smem, void* stream) {
   if (!geometry_ok<kDamped>(B, T, P, S, threads, ntiles, grid, smem))
     return cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem<kDamped>(smem);
+  const cudaError_t e = allow_smem<kDamped, kProb>(smem);
   if (e != cudaSuccess) return e;
-  voigt_tau_kernel<kDamped><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      dz, gain, av, dnu, d0, cw, tmin, mode, tau, B, T, P, S, ntiles);
+  voigt_tau_kernel<kDamped, kProb>
+      <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+          dz, gain, av, dnu, d0, cw, tmin, mode, prob, tau, B, T, P, S, ntiles);
   return cudaGetLastError();
 }
 
 template <bool kDamped>
 cudaError_t occupancy(int threads, int smem, int* ctas_per_sm) {
-  const cudaError_t e = allow_smem<kDamped>(smem);
+  const cudaError_t e = allow_smem<kDamped, false>(smem);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, voigt_tau_kernel<kDamped>, threads, static_cast<size_t>(smem));
+      ctas_per_sm, voigt_tau_kernel<kDamped, false>, threads, static_cast<size_t>(smem));
 }
 
 }  // namespace
 
 // Launches on `stream` (PyTorch's current stream) without synchronising.
 // `damped`: some transition is in mode 2 (the host knows it from the mode
-// table, voigt_cuda._any_damped); `samples` (S), `threads`, `ntiles`, `grid`
+// table, voigt_cuda._any_damped); `prob`: null, or the (B,) problem of each
+// sample, d0 then (Q, T, P) and cw (Q, P) (every entry must lie in [0, Q):
+// the kernel does not check it); `samples` (S), `threads`, `ntiles`, `grid`
 // and `smem` are voigt_cuda.tau_geometry's.  Returns the first CUDA error: a
 // refused launch never runs, and only this check reports it.
 extern "C" int mcalf_voigt_tau_groups(const float* dz, const float* gain,
                                       const float* av, const float* dnu,
                                       const float* d0, const float* cw,
                                       const float* tmin, const int* mode,
-                                      float* tau, int B, int T, int P, int damped,
-                                      int samples, int threads, int ntiles,
-                                      int grid, int smem, void* stream) {
-  return static_cast<int>((damped ? launch<true> : launch<false>)(
-      dz, gain, av, dnu, d0, cw, tmin, mode, tau, B, T, P, samples, threads,
-      ntiles, grid, smem, stream));
+                                      const int* prob, float* tau, int B, int T,
+                                      int P, int damped, int samples, int threads,
+                                      int ntiles, int grid, int smem, void* stream) {
+  const auto go = damped ? (prob ? launch<true, true> : launch<true, false>)
+                         : (prob ? launch<false, true> : launch<false, false>);
+  return static_cast<int>(go(dz, gain, av, dnu, d0, cw, tmin, mode, prob, tau, B, T,
+                             P, samples, threads, ntiles, grid, smem, stream));
 }
 
+// The version of mcalf_voigt_tau_groups' argument list: 2 since it takes the
+// problem axis `prob` (a library without this symbol has the older list).
+extern "C" int mcalf_voigt_tau_abi() { return 2; }
+
 // CTAs of `threads` threads with `smem` bytes of dynamic shared memory of the
-// instantiation for `damped` resident on one SM.
+// instantiation for `damped` (without the problem axis) resident on one SM.
 extern "C" int mcalf_voigt_tau_occupancy(int damped, int threads, int smem,
                                          int* ctas_per_sm) {
   return static_cast<int>(

@@ -4,7 +4,7 @@ Port of :mod:`mcalf_tpu.models.batched`.  Independent problems -- different
 sightlines, different seeds of one sightline -- become a leading axis of the
 constants (numpy, as :func:`~mcalf_torch.models.torch_model.build_consts`
 gives them), and :class:`~mcalf_torch.models.torch_model.StackedForward`
-evaluates rows of any of them in one fused-kernel launch.  All problems of a
+evaluates rows of any of them in one kernel launch.  All problems of a
 stack share one :class:`StaticSpec` (ndim, npix, transitions, kernel
 support, flags); pad spectra to a common grid with :func:`pad_model_to_npix`
 (padded pixels carry zero inverse variance, so they add nothing to the

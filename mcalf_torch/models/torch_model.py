@@ -12,8 +12,9 @@ tau kernel (:func:`mcalf_torch.ops.voigt_cuda.voigt_tau`); on the CPU both
 run their plain PyTorch versions.  :class:`StackedForward` holds several
 problems' constants with a leading problem axis
 (:func:`mcalf_torch.models.batched.stack_problems`) and evaluates rows of
-any of them in one fused-kernel launch, each row's constants picked by its
-problem index.  Each transition takes the JAX package's
+any of them in one kernel launch (the fused kernel in ``'same_edge'``, the
+tau kernel in ``'wrap'`` and ``'same'``), each row's constants picked by
+its problem index.  Each transition takes the JAX package's
 static choice of Voigt evaluation, as an int32 mode per transition
 (:func:`line_modes`): windowed Harris, plain Harris, or the full
 Algorithm-916/asymptotic ``hjert`` for a strongly damped line.
@@ -277,18 +278,7 @@ def _head(p, c, s: StaticSpec):
     return specres, cont
 
 
-def _pow10(N, prob):
-    """10**N.  On the CPU torch.pow rounds an element differently in its
-    vectorised loop and in the scalar loop that ends a tensor, so the bits
-    of a row depend on where it lies in the batch; a stacked batch there
-    takes it per run of one problem's rows, each exactly as that problem's
-    batch alone would."""
-    if prob is None or N.device.type != "cpu":
-        return torch.pow(10.0, N)
-    return torch.cat([torch.pow(10.0, N[a:b]) for a, b, _ in _runs(prob)])
-
-
-def _line_tables(p, c, s: StaticSpec, dz, prob=None):
+def _line_tables(p, c, s: StaticSpec, dz):
     """Per-(sample, transition) dz, gain, damping a, Doppler width dnu."""
     nact = torch.floor(p[..., s.startind])
     pidx = c["pidx"]
@@ -298,17 +288,20 @@ def _line_tables(p, c, s: StaticSpec, dz, prob=None):
         dz = p[..., pidx + 1] - c["zmid"]
     dnu = b * 1e5 * c["inv_wrest_cm"]
     avoigt = c["gamma"] / (4.0 * math.pi * dnu)
-    amp = TAU_CONST * _pow10(N, prob) * c["f"] / dnu
+    amp = TAU_CONST * torch.pow(10.0, N) * c["f"] / dnu
     active = ((c["comp_id"] < nact[..., None]) | c["is_fill"]).to(torch.float32)
     return dz, active * amp, avoigt, dnu
 
 
-def reconstruct_core(p, c, s: StaticSpec, dz=None):
+def reconstruct_core(p, c, s: StaticSpec, dz=None, prob=None):
     """Model flux (..., P) for physical parameters p (..., ndim): tau by
     :func:`voigt_tau` (the kernel on CUDA, its plain twin on the CPU), then
     exp, the LSF convolution in ``s.conv_mode`` and the continuum, which
     the JAX package leaves to XLA too.  ``dz``: optional high-precision
-    z - zmid (see build_consts); recovered from p in f32 when None."""
+    z - zmid (see build_consts); recovered from p in f32 when None.
+    ``prob``: see :func:`loglike_cube_core` (``c`` then holds
+    :func:`row_consts`; p is (B, ndim) and each row takes its own
+    problem's tables, LSF taps and continuum)."""
     p = torch.as_tensor(p, dtype=torch.float32)
     specres, cont = _head(p, c, s)
     dz, gain, avoigt, dnu = _line_tables(p, c, s, dz)
@@ -318,12 +311,15 @@ def reconstruct_core(p, c, s: StaticSpec, dz=None):
         gain.reshape(-1, T).contiguous(),
         avoigt.reshape(-1, T).contiguous(),
         dnu.reshape(-1, T).contiguous(),
-        c["d0"], c["c_over_wave"], c["tmin"], c["modes"],
+        c["d0"], c["c_over_wave"], c["tmin"], c["modes"], prob=prob,
     ).reshape(p.shape[:-1] + (s.npix,))
     flux_model = torch.exp(-tau)
     if s.half > 0:
-        sigma_pix = (specres / FWHM_TO_SIGMA) / c["velstep"]
-        kernel = gaussian_kernel(sigma_pix.to(torch.float32), s.half)
+        if "taps" in c:
+            kernel = c["taps"]
+        else:
+            sigma_pix = (specres / FWHM_TO_SIGMA) / c["velstep"]
+            kernel = gaussian_kernel(sigma_pix.to(torch.float32), s.half)
         flux_model = lsf_convolve(flux_model, kernel, mode=s.conv_mode)
     return flux_model * torch.as_tensor(cont)[..., None]
 
@@ -335,7 +331,7 @@ def fused_args(p, c, s: StaticSpec, dz=None, prob=None):
     stacked tables the kernel indexes by problem)."""
     T = s.ntrans
     specres, cont = _head(p, c, s)
-    dz, gain, avoigt, dnu = _line_tables(p, c, s, dz, prob)
+    dz, gain, avoigt, dnu = _line_tables(p, c, s, dz)
     if s.half > 0 and "taps" in c:
         kern = c["taps"]
     elif s.half > 0:
@@ -380,8 +376,10 @@ def loglike_core(p, c, s: StaticSpec, dz=None, prob=None):
     """With ``conv_mode='same_edge'``: tau -> exp -> LSF conv -> chi^2 (+
     asymmlike counts) in one :func:`fused_loglike` call, the kernel on CUDA
     and its plain twin on the CPU; only the Gaussian-prior term stays
-    outside.  Any other mode goes through :func:`reconstruct_core`, as the
-    JAX package's does.  ``prob``: see :func:`loglike_cube_core`."""
+    outside.  Any other mode goes through :func:`reconstruct_core` (one
+    :func:`voigt_tau` launch on CUDA), as the JAX package's does.
+    ``prob``: see :func:`loglike_cube_core`; every row reads its own
+    problem's data, weights and constants."""
     p = torch.as_tensor(p, dtype=torch.float32)
     if s.conv_mode == "same_edge":
         chi2, n4, n5 = fused_loglike(
@@ -389,18 +387,19 @@ def loglike_core(p, c, s: StaticSpec, dz=None, prob=None):
             asymm=s.asymmlike, prob=prob,
         )
         return loglike_from_fused(p, c, s, chi2, n4, n5)
-    if prob is not None:
-        raise NotImplementedError(
-            f"stacked problems take the fused likelihood ('same_edge'), not "
-            f"conv_mode={s.conv_mode!r}"
-        )
-    m = reconstruct_core(p, c, s, dz=dz)
-    r = c["data"] - m
-    ll = -0.5 * (torch.sum(c["ivar"] * r * r, dim=-1) + c["const_term"])
+    m = reconstruct_core(p, c, s, dz=dz, prob=prob)
+    # a stacked batch reads each row's (P,) tables by its problem: an
+    # elementwise op of a (Q, P) table with rows of any problems takes the
+    # (B, P) gather (live for this call only) or a kernel of its own, and
+    # the gather keeps every row's ops and bits its solo row's
+    per = (lambda k: c[k]) if prob is None else (lambda k: c[k].index_select(0, prob))
+    r = per("data") - m
+    ll = -0.5 * (torch.sum(per("ivar") * r * r, dim=-1) + c["const_term"])
     if s.asymmlike:
-        resid = r / c["noise"]
-        n5 = torch.sum((resid > 5.0) & c["valid"], dim=-1)
-        n4 = torch.sum((resid > 4.0) & c["valid"], dim=-1)
+        resid = r / per("noise")
+        valid = per("valid")
+        n5 = torch.sum((resid > 5.0) & valid, dim=-1)
+        n4 = torch.sum((resid > 4.0) & valid, dim=-1)
         bad = (n5 > c["cdf5"] + c["grace"]) | (n4 > c["cdf4"] + c["grace"])
         ll = torch.where(bad, -math.inf, ll)
     if s.has_gpriors:
@@ -429,8 +428,9 @@ def loglike_cube_core(u, c, s: StaticSpec, prob=None):
     return loglike_core(cube_to_params_core(u, c), c, s, dz=dz, prob=prob)
 
 
-#: stacked tables that the fused kernel indexes by problem itself
-_KERNEL_TABLES = ("d0", "c_over_wave", "data", "ivar", "inv_noise")
+#: stacked tables that the kernels index by problem themselves, or that the
+#: likelihood outside the fused kernel reads per row by problem
+_KERNEL_TABLES = ("d0", "c_over_wave", "data", "ivar", "inv_noise", "noise", "valid")
 #: per-problem constants the likelihood reads per row, gathered by problem
 _ROW_KEYS = (
     "zmid", "zspan", "lo", "hi", "contval", "fixed_specres", "velstep",
@@ -445,7 +445,7 @@ def row_consts(c: Mapping[str, torch.Tensor], prob: torch.Tensor) -> Dict[str, A
     by ``prob``, the kernel's stacked tables and the shared layout and mode
     tables as they are."""
     out = {k: c[k] for k in _KERNEL_TABLES + ("pidx", "comp_id", "is_fill",
-                                             "u_zidx", "tmin", "modes")}
+                                             "u_zidx", "tmin", "modes") if k in c}
     out.update((k, c[k][prob]) for k in _ROW_KEYS if k in c)
     return out
 
@@ -534,11 +534,12 @@ class StackedForward(_HeldConsts):
     """The likelihood of Q stacked problems that share one
     :class:`StaticSpec`, their constants held as buffers with a leading
     problem axis (the layout and mode tables shared).  One call evaluates
-    rows of any of the problems, in one fused-kernel launch on CUDA.
+    rows of any of the problems, in one kernel launch on CUDA: the fused
+    kernel in ``conv_mode='same_edge'``, the tau kernel in any other mode.
 
     With a fixed resolution each problem's LSF taps are made once here, by
-    the expression :func:`fused_args` evaluates for one problem, so a row's
-    taps are that problem's bit for bit."""
+    the expression :func:`fused_args` and :func:`reconstruct_core` evaluate
+    for one problem, so a row's taps are that problem's bit for bit."""
 
     def __init__(self, static: StaticSpec, consts: Mapping[str, torch.Tensor]):
         nprob = int(consts["d0"].shape[0])
@@ -557,8 +558,22 @@ class StackedForward(_HeldConsts):
 
     def loglike_cube(self, u, prob):
         """(B, ndim) unit-cube points, (B,) int32 problem of each row ->
-        (B,) log-likelihood."""
-        return loglike_cube_core(u, self.consts(), self.static, prob=prob)
+        (B,) log-likelihood.
+
+        On the CPU ``torch.pow`` and ``torch.exp`` round an element
+        differently in their vectorised loop and their scalar tail, so a
+        row's bits depend on where it lies in the batch: there each run of
+        one problem's rows is its own call, evaluated exactly as that
+        problem's batch alone would be, and a fleet member is its solo run
+        bit for bit."""
+        u = torch.as_tensor(u, dtype=torch.float32)
+        c, s = self.consts(), self.static
+        if u.device.type == "cpu":
+            runs = _runs(prob)
+            if len(runs) > 1:
+                return torch.cat([loglike_cube_core(u[a:b], c, s, prob=prob[a:b])
+                                  for a, b, _ in runs])
+        return loglike_cube_core(u, c, s, prob=prob)
 
 
 def make_stacked_forward(

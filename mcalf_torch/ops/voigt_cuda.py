@@ -7,6 +7,9 @@
       tau[b, p] = sum_t gain[b,t] H_t(u, a[b,t]),
       u = (d0[t,p] + dz[b,t] cw[p]) / dnu[b,t]
 
+  with an optional problem axis like the fused kernel's (d0 (Q, T, P) and
+  cw (Q, P) indexed by ``prob[b]``);
+
 * :func:`fused_loglike` -- the whole likelihood in one kernel
   (``csrc/fused_loglike.cu``), replacing ``::_ll_kernel`` and
   ``::_ll_kernel_win`` (entry ``likelihood_pallas``)::
@@ -121,9 +124,9 @@ def _tau_fn():
 
     fn = load().lib.mcalf_voigt_tau_groups
     fn.restype = ctypes.c_int
-    # 9 pointers, B, T, P, damped, samples, threads, ntiles, grid, smem,
-    # stream
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    # 10 pointers (prob may be null), B, T, P, damped, samples, threads,
+    # ntiles, grid, smem, stream
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     return fn
 
 
@@ -315,13 +318,26 @@ def _check_cuda_inputs(B, T, P, named, modes) -> None:
         )
 
 
-def voigt_tau_plain(dz, gain, av, dnu, d0, cw, tmin, modes) -> torch.Tensor:
+def voigt_tau_plain(dz, gain, av, dnu, d0, cw, tmin, modes, prob=None) -> torch.Tensor:
     """Plain PyTorch version of the tau kernel (same arguments, same math).
 
     A windowed transition evaluates the Harris expansion only on the pixels
     with u^2 < tmin and the wing polynomial elsewhere (the same per-element
     selection as ``hjert_harris_win``); a strongly damped one takes
-    :func:`~mcalf_torch.ops.faddeeva.hjert`."""
+    :func:`~mcalf_torch.ops.faddeeva.hjert`.
+
+    With ``prob``, each run of consecutive samples of one problem is one
+    call on that problem's tables: on the CPU ``torch.pow`` and
+    ``torch.exp`` round an element differently in their vectorised loop and
+    their scalar tail, so a run is evaluated exactly as a batch of that
+    problem alone would be."""
+    if prob is not None:
+        if dz.shape[0] == 0:
+            return torch.zeros((0, cw.shape[-1]), dtype=torch.float32, device=dz.device)
+        return torch.cat([
+            voigt_tau_plain(dz[a:b], gain[a:b], av[a:b], dnu[a:b], d0[q], cw[q], tmin, modes)
+            for a, b, q in _runs(prob)
+        ])
     B, T = dz.shape
     P = cw.shape[0]
     idnu = 1.0 / dnu
@@ -352,7 +368,19 @@ def voigt_tau_plain(dz, gain, av, dnu, d0, cw, tmin, modes) -> torch.Tensor:
     return tau
 
 
-def voigt_tau(dz, gain, av, dnu, d0, cw, tmin, modes) -> torch.Tensor:
+def _check_prob(prob, dz, d0, B: int) -> None:
+    """What a kernel reads of a problem axis: (B,) contiguous int32 on the
+    samples' device, and a d0 its int32 offsets can index."""
+    if prob.device != dz.device or prob.dtype != torch.int32 or not prob.is_contiguous():
+        raise ValueError(f"prob: need a contiguous int32 tensor on {dz.device}, got "
+                         f"{prob.dtype} on {prob.device}")
+    if prob.shape != (B,):
+        raise ValueError(f"prob: shape {tuple(prob.shape)} != {(B,)}")
+    if d0.numel() >= 2**31:
+        raise ValueError(f"d0: {d0.numel()} elements, over the kernel's int32 index")
+
+
+def voigt_tau(dz, gain, av, dnu, d0, cw, tmin, modes, prob=None) -> torch.Tensor:
     """Voigt optical depth (B, P) for a batch of samples.
 
     dz, gain, av, dnu : (B, T) float32 per-sample per-transition scalars
@@ -360,25 +388,32 @@ def voigt_tau(dz, gain, av, dnu, d0, cw, tmin, modes) -> torch.Tensor:
     d0 : (T, P) the f64-built (1 + zmid) c/lam - nu0 table; cw : (P,).
     tmin : (T,) float32 wing thresholds of the windowed transitions;
     modes : (T,) int32 per-transition modes (MODE_*).
+    prob : optional (B,) int32 problem of each sample; d0 is then
+    (Q, T, P) and cw (Q, P), and every entry of prob must lie in [0, Q)
+    (the kernel does not check it: that would cost a device read per call).
     """
     B, T = dz.shape
-    P = cw.shape[0]
+    P = cw.shape[-1]
     if dz.device.type == "cpu":
-        return voigt_tau_plain(dz, gain, av, dnu, d0, cw, tmin, modes)
+        return voigt_tau_plain(dz, gain, av, dnu, d0, cw, tmin, modes, prob)
     if dz.device.type != "cuda":
         raise ValueError(f"voigt_tau runs on cpu or cuda, not {dz.device}")
     named = (("dz", dz), ("gain", gain), ("av", av), ("dnu", dnu), ("d0", d0),
              ("cw", cw), ("tmin", tmin))
     _check_cuda_inputs(B, T, P, named, modes)
-    if d0.dim() != 2:
-        raise ValueError(f"d0: shape {tuple(d0.shape)} != {(T, P)}")
+    lead = () if prob is None else (d0.shape[0],)
+    if d0.shape != lead + (T, P) or cw.shape != lead + (P,):
+        raise ValueError(f"d0 {tuple(d0.shape)} / cw {tuple(cw.shape)}: need "
+                         f"{lead + (T, P)} / {lead + (P,)}")
+    if prob is not None:
+        _check_prob(prob, dz, d0, B)
     damped = _any_damped(modes)
     index = dz.device.index if dz.device.index is not None else torch.cuda.current_device()
     geo = tau_geometry(B, T, P, damped, sms=_sm_count(index))
     tau = torch.empty((B, P), dtype=torch.float32, device=dz.device)
     if B == 0 or P == 0:
         return tau
-    _launch_tau(named, modes, tau, damped, geo)
+    _launch_tau(named, modes, tau, damped, geo, prob)
     count_launch(_add_tau_launches)
     return tau
 
@@ -388,14 +423,16 @@ def _add_tau_launches(n: int) -> None:
     tau_launches += n
 
 
-def _launch_tau(named, modes, tau, damped: bool, geo: TauGeometry) -> None:
-    """One launch of the tau kernel's instantiation for `damped` at this
-    geometry, on the current stream."""
+def _launch_tau(named, modes, tau, damped: bool, geo: TauGeometry, prob=None) -> None:
+    """One launch of the tau kernel's instantiation for `damped` (and for
+    a problem axis when `prob` is given) at this geometry, on the current
+    stream."""
     B, P = tau.shape
     T = modes.shape[0]
     stream = torch.cuda.current_stream(tau.device).cuda_stream
     err = _tau_fn()(
-        *(x.data_ptr() for _, x in named), modes.data_ptr(), tau.data_ptr(),
+        *(x.data_ptr() for _, x in named), modes.data_ptr(),
+        None if prob is None else prob.data_ptr(), tau.data_ptr(),
         B, T, P, int(damped), geo.samples, geo.threads, geo.ntiles, geo.grid,
         geo.smem, stream,
     )
@@ -500,13 +537,7 @@ def fused_loglike(
         if x.shape != lead + (P,):
             raise ValueError(f"{name}: shape {tuple(x.shape)} != {lead + (P,)}")
     if prob is not None:
-        if prob.device != dz.device or prob.dtype != torch.int32 or not prob.is_contiguous():
-            raise ValueError(f"prob: need a contiguous int32 tensor on {dz.device}, got "
-                             f"{prob.dtype} on {prob.device}")
-        if prob.shape != (B,):
-            raise ValueError(f"prob: shape {tuple(prob.shape)} != {(B,)}")
-        if d0.numel() >= 2**31:
-            raise ValueError(f"d0: {d0.numel()} elements, over the kernel's int32 index")
+        _check_prob(prob, dz, d0, B)
     if kern.dim() != 2 or kern.shape[1] != K or kern.shape[0] not in (1, B):
         raise ValueError(f"kern: shape {tuple(kern.shape)}, need (B or 1, {K})")
     if cont.dim() != 1 or cont.shape[0] not in (1, B):

@@ -7,8 +7,9 @@ independent problems -- sightlines, candidate models, seeds of one problem
 the counterpart of "shard the problem axis" is "carry the problem axis
 through the sampler and the kernel": the problems' slice chains run stacked
 (:func:`mcalf_torch.sampler.nested.nested_sample_stacked`), and each slice
-iteration evaluates the rows of every running problem in one fused-kernel
-launch (:class:`~mcalf_torch.models.torch_model.StackedForward`).  Each
+iteration evaluates the rows of every running problem in one kernel launch
+(:class:`~mcalf_torch.models.torch_model.StackedForward`: the fused kernel
+in ``conv_mode='same_edge'``, the tau kernel in ``'wrap'`` and ``'same'``).  Each
 problem keeps its own generator, termination and chunk schedule, so problem
 i ends bit for bit where ``nested_sample`` alone takes it with generator i.
 

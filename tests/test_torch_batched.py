@@ -178,10 +178,3 @@ def test_stacked_rows_are_the_solo_rows_bit_for_bit(B):
         for s, o in zip(stacked, one):
             assert torch.equal(s[rows], o)
 
-
-def test_stacked_forward_refuses_other_conv_modes():
-    tp = _padded(tbatched.pad_model_to_npix, _models(TModel, "transdim"))
-    ts, tst = tbatched.stack_problems(tp, conv_mode="wrap")
-    fwd = tm.make_stacked_forward(ts, tst, "cpu")
-    with pytest.raises(NotImplementedError, match="fused likelihood"):
-        fwd.loglike_cube(torch.full((2, ts.ndim), 0.5), torch.zeros(2, dtype=torch.int32))

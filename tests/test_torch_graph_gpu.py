@@ -8,6 +8,8 @@ CUDA device.  No jax here, so on a machine with a card:
   generator's state at every chunk boundary) on a small Gaussian and on the
   1-comp CIV anchor;
 * a fleet member is its solo run, both captured;
+* the likelihood in conv_mode='wrap' (the tau kernel), solo and as a
+  fleet, captured = eager;
 * fused-kernel launches counted by replay equal the fused kernel's runs
   in a profiler trace; evaluations come from the device counter;
 * a likelihood that reads the device cannot be captured: the capture
@@ -139,6 +141,56 @@ def test_member_is_solo_captured(cuda):
         assert torch.equal(member.samples_u, one.samples_u)
         assert torch.equal(member.logl, one.logl)
         assert torch.equal(g.get_state(), solo_gen.get_state())
+
+
+def test_captured_equals_eager_wrap(cuda):
+    """The likelihood in conv_mode='wrap' (voigt_tau, exp, the circular
+    LSF, the chi^2 sum) inside the captured loop: captured = eager bit for
+    bit, one tau launch and no fused launch per likelihood call run."""
+    m = AbsorptionModel.from_file(str(TESTDATA / "civ_mock_spec.txt"), ncomp=(1, 1), **_CIV)
+    loglike = make_torch_forward(m, cuda, conv_mode="wrap").loglike_cube
+    cfg = NSConfig(ndim=m.ndim, nlive=40, num_repeats=8, max_samples=1200,
+                   canon_layout=m.canon_layout())
+    graph.reset_stats()
+    voigt_cuda.launches = voigt_cuda.tau_launches = 0
+    captured = _run(loglike, cfg, cuda, None)
+    assert voigt_cuda.launches == 0 and graph.stats["captures"] >= 1
+    # the initial live set, one warm-up iteration per capture, k per replay
+    assert voigt_cuda.tau_launches == 1 + graph.stats["warmups"] + graph.stats["iterations"]
+    _same(captured, _run(loglike, cfg, cuda, "eager"))
+
+
+def test_wrap_fleet_captured_equals_eager(cuda):
+    """Three stacked problems in conv_mode='wrap' (two seeds of one
+    spectrum and another spectrum): the captured fleet is the eager one bit
+    for bit, one tau launch per stacked likelihood call."""
+    from mcalf_torch.models.batched import stack_problems
+    from mcalf_torch.models.torch_model import make_stacked_forward
+    from mcalf_torch.sampler import finalize
+
+    models = [AbsorptionModel.from_file(str(TESTDATA / f), ncomp=(1, 1), **_CIV)
+              for f in ("civ_mock_spec.txt", "civ_mock_spec.txt", "civ_mock_spec_multicomp.txt")]
+    fwd = make_stacked_forward(*stack_problems(models, conv_mode="wrap"), cuda)
+    cfg = NSConfig(ndim=4, nlive=40, num_repeats=6, max_samples=1200)
+    calls = [0]
+
+    def rows(u, prob):
+        calls[0] += 1
+        return fwd.loglike_cube(u, prob)
+
+    out = {}
+    for loop in (None, "eager"):
+        gens = [torch.Generator(device=cuda).manual_seed(s) for s in (1, 2, 1)]
+        voigt_cuda.launches = voigt_cuda.tau_launches = 0
+        ll = rows if loop == "eager" else fwd.loglike_cube
+        finals = tn.nested_sample_stacked(ll, gens, cfg, cuda, _loop=loop)
+        out[loop] = ([finalize(f, cfg) for f in finals], voigt_cuda.tau_launches,
+                     voigt_cuda.launches)
+    (cap, _, cap_fused), (eag, eag_tau, _) = out[None], out["eager"]
+    assert cap_fused == 0 and eag_tau == calls[0]
+    for a, b in zip(cap, eag):
+        assert float(a.logz) == float(b.logz) and a.n_like == b.n_like
+        assert torch.equal(a.samples_u, b.samples_u) and torch.equal(a.logl, b.logl)
 
 
 def test_uncapturable_likelihood_raises(cuda):

@@ -167,3 +167,38 @@ def test_port_modules_import_neither_jax_nor_mcalf_tpu():
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("IMPORTED")[1])
     assert n >= 25 and Path(mcalf_torch.__file__).parent.name == "mcalf_torch"
+
+
+#: the port's tools and example, and a call of each that loads the modules
+#: of mcalf_torch it runs
+_PORT_SCRIPTS = {
+    "tools/torch_truth_anchor.py": "mod.make_model(brange=(3.0, 40.0)); mod.grid_rows([0.5], [0.5], [0.5])",
+    "tools/torch_coverage_study.py": "mod.make_problems(2, 1, 0.02)",
+    "tools/torch_flagship_study.py": "mod.config(mod.make_model((8, 8)), 544, 100); mod.build_jobs('fixedk544')",
+    "examples/model_grid_torch.py": "mod.fixed_model('testdata/civ_mock_spec.txt', 1, 2)",
+}
+
+
+@pytest.mark.parametrize("script", sorted(_PORT_SCRIPTS))
+def test_port_scripts_import_neither_jax_nor_mcalf_tpu(script):
+    """Each tool of the port and its example, imported and called in a fresh
+    interpreter."""
+    code = textwrap.dedent(f"""
+        import importlib.util, sys
+        spec = importlib.util.spec_from_file_location("script", {script!r})
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        import mcalf_torch.parallel, mcalf_torch.sampler
+        {_PORT_SCRIPTS[script]}
+        assert "mcalf_torch.models.forward" in sys.modules
+        bad = sorted(m for m in sys.modules
+                     if m in ("jax", "mcalf_tpu") or m.startswith(("jax.", "mcalf_tpu.")))
+        assert not bad, bad
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), proc.stderr[-3000:]

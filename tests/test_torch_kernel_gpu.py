@@ -200,7 +200,7 @@ def test_tau_instantiation_follows_the_mode_table(name, damped, monkeypatch):
     seen = []
     launch = voigt_cuda._launch_tau
     monkeypatch.setattr(voigt_cuda, "_launch_tau",
-                        lambda *a: seen.append(a[3:]) or launch(*a))
+                        lambda *a: seen.append(a[3:5]) or launch(*a))
     targs = (lambda a: a[:6] + a[11:])(_args(fwd, 100, seed=4))
     voigt_cuda.voigt_tau(*targs)
     s = fwd.static
@@ -380,6 +380,82 @@ def test_stacked_kernel_wrapper_validation():
         voigt_cuda.fused_loglike(*args, **kw, prob=prob[:3].contiguous())
     with pytest.raises(ValueError, match="d0: shape"):
         voigt_cuda.fused_loglike(*args, **kw)  # stacked tables without prob
+
+
+def _stacked_tau_pair(name):
+    """The model ``name`` on the full range and on a shorter one padded to
+    its pixels, stacked on the card (the layout and mode tables shared)."""
+    from mcalf_torch.models.batched import pad_model_to_npix, stack_problems
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = str(TESTDATA / "civ_mock_spec_multicomp.txt")
+    full = AbsorptionModel.from_file(spec, **MODELS[name])
+    short = AbsorptionModel.from_file(spec, **dict(MODELS[name], fitrange=[(6182.0, 6216.0)]))
+    s, stacked = stack_problems([full, pad_model_to_npix(short, full.npix)], conv_mode="wrap")
+    return tm.make_stacked_forward(s, stacked, "cuda")
+
+
+def _stacked_tau_args(sf, B, seed):
+    """voigt_tau's arguments for B rows of the two problems, interleaved in
+    a random order, and their (B,) int32 problems."""
+    s = sf.static
+    rng = np.random.default_rng(seed)
+    u = torch.from_numpy(rng.uniform(0.02, 0.98, (B, s.ndim)).astype(np.float32)).cuda()
+    prob = torch.from_numpy(rng.integers(0, 2, B).astype(np.int32)).cuda()
+    c = tm.row_consts(sf.consts(), prob)
+    dz = (u[:, c["u_zidx"]] - 0.5) * c["zspan"]
+    args = tm.fused_args(tm.cube_to_params_core(u, c), c, s, dz=dz, prob=prob)
+    return args[:6] + args[11:], prob
+
+
+@pytest.mark.parametrize("B", (1, 13, 100, 1000))
+@pytest.mark.parametrize("name", ("flagship", "narrow", "mixed"))
+def test_stacked_tau_matches_plain_and_single_problem_launches(name, B):
+    """The tau kernel's problem axis, rows of two problems interleaved:
+    within the tau bar of the plain version, and every row bit for bit
+    the single-problem launch's (groups of S consecutive rows span both
+    problems)."""
+    sf = _stacked_tau_pair(name)
+    targs, prob = _stacked_tau_args(sf, B, seed=B)
+    before = voigt_cuda.tau_launches
+    k = voigt_cuda.voigt_tau(*targs, prob=prob)
+    assert voigt_cuda.tau_launches == before + 1
+    q = voigt_cuda.voigt_tau_plain(*targs, prob=prob)
+    torch.cuda.synchronize()
+    err = ((k - q).abs() / (q.abs() + 1e-3)).max().item()
+    assert err < 3e-5, err
+    d0, cw = targs[4], targs[5]
+    for i in range(2):
+        rows = (prob == i).nonzero().squeeze(1)
+        if rows.numel() == 0:
+            continue
+        one = voigt_cuda.voigt_tau(*(a[rows].contiguous() for a in targs[:4]), d0[i], cw[i],
+                                   *targs[6:])
+        assert torch.equal(k[rows], one)
+
+
+def test_stacked_tau_wrapper_validation():
+    sf = _stacked_tau_pair("flagship")
+    targs, prob = _stacked_tau_args(sf, 8, seed=1)
+    with pytest.raises(ValueError, match="prob: need a contiguous int32"):
+        voigt_cuda.voigt_tau(*targs, prob=prob.long())
+    with pytest.raises(ValueError, match=r"prob: shape \(7,\)"):
+        voigt_cuda.voigt_tau(*targs, prob=prob[:7].contiguous())
+    with pytest.raises(ValueError, match="d0"):
+        voigt_cuda.voigt_tau(*targs)  # stacked tables without prob
+    with pytest.raises(ValueError, match="d0"):
+        voigt_cuda.voigt_tau(*targs[:4], targs[4][0], targs[5][0], *targs[6:], prob=prob)
+
+
+def test_tau_library_exports_its_abi_version():
+    """tools/compare_tau.py calls a library through this checkout's wrapper
+    when it exports mcalf_voigt_tau_abi: version 2, the problem axis."""
+    from mcalf_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert _build.load().lib.mcalf_voigt_tau_abi() == 2
 
 
 def test_fleet_member_is_the_solo_fit_on_the_card():

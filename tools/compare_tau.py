@@ -7,13 +7,15 @@ Builds the CUDA sources of DIR/mcalf_torch/csrc (an older checkout, e.g. a
 ``mcalf_torch/ops/_build.py``, and runs both ``voigt_tau`` kernels on the
 same inputs: the flagship, the narrow flagship and the mixed model at B in
 {1, 100, 1000}, made from a seed.  This checkout's kernel, and an older one
-with the same C entry point (``mcalf_voigt_tau_groups``), run through this
-checkout's wrapper; an older one with the one-sample entry point
-``mcalf_voigt_tau`` (one CTA per sample and 256-pixel tile) is called
-through that.  Both kernels share the per-pixel tau arithmetic of the fused
-kernel (``csrc/voigt_h.cuh``).  Prints, per model and batch, the number of
-values of tau that differ and the largest difference, and exits 1 if any
-differs.
+whose library exports ``mcalf_voigt_tau_abi`` (the grouped entry point
+``mcalf_voigt_tau_groups`` with the problem axis), run through this
+checkout's wrapper; an older grouped entry point without the problem axis
+is called at this checkout's geometry; an older one with the one-sample
+entry point ``mcalf_voigt_tau`` (one CTA per sample and 256-pixel tile) is
+called through that.  Both kernels share the per-pixel tau arithmetic of
+the fused kernel (``csrc/voigt_h.cuh``).  Prints, per model and batch, the
+number of values of tau that differ and the largest difference, and exits
+1 if any differs.
 """
 
 from __future__ import annotations
@@ -54,8 +56,10 @@ def main() -> int:
         _build.load.cache_clear()
         voigt_cuda._tau_fn.cache_clear()
         lib = _build.load().lib
-        if hasattr(lib, "mcalf_voigt_tau_groups"):
+        if hasattr(lib, "mcalf_voigt_tau_abi"):
             taus[which] = {k: voigt_cuda.voigt_tau(*a) for k, a in inputs.items()}
+        elif hasattr(lib, "mcalf_voigt_tau_groups"):
+            taus[which] = {k: _groups_tau(lib, a) for k, a in inputs.items()}
         else:
             taus[which] = {k: _one_sample_tau(lib, a) for k, a in inputs.items()}
         torch.cuda.synchronize()
@@ -67,6 +71,30 @@ def main() -> int:
         print(f"[tau bits] {name} B={B} P={a.shape[1]}: {ndiff} of {a.numel()} tau "
               f"values differ, max |dtau| {float((a - b).abs().max()):.3g}  [{smi}]")
     return 0 if same else 1
+
+
+def _groups_tau(lib, args):
+    """tau from a library whose grouped entry point has no problem axis:
+    mcalf_voigt_tau_groups(9 pointers, B, T, P, damped, samples, threads,
+    ntiles, grid, smem, stream), at this checkout's geometry."""
+    import torch
+
+    from mcalf_torch.ops import voigt_cuda
+
+    fn = lib.mcalf_voigt_tau_groups
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    B, T = args[0].shape
+    P = args[5].shape[0]
+    damped = voigt_cuda._any_damped(args[7])
+    geo = voigt_cuda.tau_geometry(B, T, P, damped)
+    tau = torch.empty((B, P), dtype=torch.float32, device=args[0].device)
+    err = fn(*(x.data_ptr() for x in args), tau.data_ptr(), B, T, P, int(damped),
+             geo.samples, geo.threads, geo.ntiles, geo.grid, geo.smem,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the older tau kernel's launch failed: CUDA error {err}")
+    return tau
 
 
 def _one_sample_tau(lib, args):
