@@ -129,7 +129,28 @@ Phases, each printing lines tagged with its number:
    package's on the same grid (taken on the CPU, stored below), the
    moments, and the fused kernel's device time at B = 16,384; (d)
    tools/torch_coverage_study.py at the JAX test's size (32 realizations,
-   nlive 100, max_samples 6000) as one fleet, with its gates.
+   nlive 100, max_samples 6000) as one fleet, with its gates;
+16. the JAX package's last public names, in a budget of 90 s: (a) the
+   wing window switched off (``MCALF_TORCH_WINDOW=0``, the mode table
+   ``[0] * 22``: plain Harris on every pixel, the counterpart of the
+   plain-Harris branch of ``_ll_kernel`` and ``_tau_kernel``): the fused
+   kernel against plain on the flagship at B in {100, 37, 1}, spread and
+   z-clustered, at phase 3's bar, ``voigt_tau`` at B in {100, 1000} at
+   the tau bar, log L with the switch off within 3e-6 relative of the
+   switch on on 64 rows, and both kernels' device time in mode 0 against
+   mode 1 at B = 100 and 200 (phase 5's method, in turns); (b) phase 6's
+   flagship slice with the switch off through ``cli.main``: fused launches
+   = likelihood calls run, logZ finite, evals/s beside phase 6's; (c)
+   ``sampler.warmup_executables`` at the flagship's shapes with the
+   library, geometry and mode-table caches emptied, then phase 6's slice
+   through ``cli.main``: no library loaded and no geometry computed after
+   the warm-up, the chain files byte for byte phase 6's; the warm-up's
+   seconds, the build's and each graph capture's apart; (d)
+   ``make_sampler`` byte for byte ``nested_sample`` on the flagship (seed
+   43), and ``nested_sample_device`` on tests/test_torch_evidence_seeds.py's
+   Gaussian, 8 seeds as one fleet, each member's logZ its solo run's, the
+   mean within max(3 sem, 0.08) of 0; (e) each member of phase 15 (b)'s
+   ``'wrap'`` fleet bit for bit its solo captured run.
 
 Phase 5 also prints, at B=100, a census bound from the port's own FLOP
 count of both plain versions (``mcalf_torch.utils.flops``, run on the CPU)
@@ -138,7 +159,7 @@ beside the branch-aware bound.
 Then one JSON line with the kernels' launch counts, errors, device and
 call times and bounds (at the narrow flagship, B=100; the tau kernel's at
 every timed model and batch under ``by_batch``; the stacked launch under
-``stacked``), and as the last
+``stacked``; mode 0 under ``mode0``), and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises.  The port
 must not import jax or mcalf_tpu: checked at the end.
 """
@@ -146,8 +167,10 @@ must not import jax or mcalf_tpu: checked at the end.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -2357,7 +2380,7 @@ def phase_wrap_fleet(tmp: Path, smi: str, fleet: dict, same_edge_profile: dict) 
             files.append([Path(base + x).read_bytes() for x in (".stats", "_equal_weights.txt")])
         if files[0] != files[1]:
             raise AssertionError(f"wrap fleet: seed {FLEET_SEEDS[i]}'s captured files differ")
-    out = {}
+    out = {"members": turns["captured"]["members"]}
     for name, t in turns.items():
         iters = t["calls"] - 1  # the first call evaluates the four initial live sets
         n_like = sum(r.n_like for r in t["members"])
@@ -2550,6 +2573,288 @@ def _time_q64(cov, smi: str) -> dict:
     return dict(ms=ms, bound_ms=bound, bound_by=by, rows=Q * B, max_abs_err=err)
 
 
+# ---- phase 16: the JAX package's last public names ----
+
+#: phase 16's own budget of wall seconds (printed beside its wall)
+PHASE16_BUDGET_S = 90.0
+#: phase 16 (a): log L with the window off against on (tests/test_windowing.py)
+WINDOW_LOGL_BAR = 3e-6
+#: phase 16 (d): nested_sample_device on tests/test_torch_evidence_seeds.py's Gaussian
+DEVICE_GAUSS = dict(ndim=4, sigma=0.08, nlive=100, num_delete=25, max_samples=8000)
+DEVICE_SEEDS = tuple(range(8))
+
+
+@contextlib.contextmanager
+def _window_off():
+    """``MCALF_TORCH_WINDOW=0`` inside the block: a forward model built
+    there has every Harris transition in mode 0."""
+    old = os.environ.get("MCALF_TORCH_WINDOW")
+    os.environ["MCALF_TORCH_WINDOW"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MCALF_TORCH_WINDOW")
+        else:
+            os.environ["MCALF_TORCH_WINDOW"] = old
+
+
+def phase_window_off(smi: str) -> dict:
+    """Phase 16 (a): both kernels in mode 0 on the flagship against their
+    plain versions, log L off against on, and mode 0's device time against
+    mode 1's."""
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.ops import voigt_cuda
+
+    model = _model("flagship")
+    with _window_off():
+        off = make_torch_forward(model, "cuda")
+    on = make_torch_forward(model, "cuda")
+    s = off.static
+    if off.modes.tolist() != [voigt_cuda.MODE_HARRIS] * s.ntrans or s.ntrans != 22:
+        raise AssertionError(f"window off: mode table {off.modes.tolist()}")
+    if set(on.modes.tolist()) != {voigt_cuda.MODE_WINDOWED}:
+        raise AssertionError(f"window on: mode table {on.modes.tolist()}")
+    kw = dict(half=s.half, asymm=s.asymmlike)
+    worst = 0.0
+    for B in (100, 37, 1):
+        for clustered in (False, True):
+            u = _batch(s.ndim, B, clustered, seed=B + 7 * clustered, layout=model.canon_layout())
+            p, args = _fused_args(off, u)
+            fin, err = _fused_against_plain(f"window off B={B}", p, off.consts(), s, args, kw)
+            worst = max(worst, err)
+            print(f"[16 window off] fused, modes [0] x {s.ntrans}, B={B} "
+                  f"{'z-clustered' if clustered else 'spread'}: max |dlogL| {err:.3g} against "
+                  f"plain, finite {fin}/{B}")
+    worst_tau = 0.0
+    for B in (100, 1000):
+        targs = _tau_args(_fused_args(off, _batch(s.ndim, B, False, seed=3 * B, layout=None))[1])
+        k = voigt_cuda.voigt_tau(*targs)
+        q = voigt_cuda.voigt_tau_plain(*targs)
+        rel = float(((k - q).abs() / (q.abs() + 1e-3)).max())
+        if not rel < 3e-5:
+            raise AssertionError(f"window off: tau B={B} max rel err {rel}")
+        worst_tau = max(worst_tau, float((k - q).abs().max()))
+        print(f"[16 window off] voigt_tau, modes [0] x {s.ntrans}, B={B}: max "
+              f"|dtau|/(|tau|+1e-3) {rel:.3g} against plain")
+    u = _batch(s.ndim, 64, False, seed=9, layout=None)
+    l0 = off.loglike_cube(u).double().cpu().numpy()
+    lw = on.loglike_cube(u).double().cpu().numpy()
+    if not (np.isfinite(l0).all() and np.isfinite(lw).all()):
+        raise AssertionError("window off/on: a log L is not finite")
+    drel = float(np.max(np.abs(lw - l0) / (np.abs(l0) + 1.0)))
+    if not drel < WINDOW_LOGL_BAR:
+        raise AssertionError(f"window off/on: relative log-L difference {drel}")
+    print(f"[16 window off] log L off against on, 64 rows: max relative difference {drel:.3g} "
+          f"(bar {WINDOW_LOGL_BAR})")
+    mode0 = {"fused": {}, "tau": {}}
+    for B in (100, 200):
+        u = _batch(s.ndim, B, False, seed=B, layout=None)
+        a1, a0 = _fused_args(on, u)[1], _fused_args(off, u)[1]
+        t1, t0 = _tau_args(a1), _tau_args(a0)
+        f = lambda a: (lambda: voigt_cuda.fused_loglike(*a, **kw))
+        t = lambda a: (lambda: voigt_cuda.voigt_tau(*a))
+        # mode 1, mode 0, mode 0, mode 1
+        fd = [_device_ms(f(a1)), _device_ms(f(a0)), _device_ms(f(a0)), _device_ms(f(a1))]
+        td = [_device_ms(t(t1)), _device_ms(t(t0)), _device_ms(t(t0)), _device_ms(t(t1))]
+        fp = _median_ms(lambda: voigt_cuda.fused_loglike_plain(*a0, **kw), reps=5)
+        tp = _median_ms(lambda: voigt_cuda.voigt_tau_plain(*t0), reps=5)
+        fb, fby = _bound(a0, True, s.half)
+        tb, tby = _bound(t0, False)
+        mode0["fused"][f"B={B}"] = dict(ms=(fd[1] + fd[2]) / 2, ms_mode1=(fd[0] + fd[3]) / 2,
+                                        plain_ms=fp, bound_ms=fb, bound_by=fby)
+        mode0["tau"][f"B={B}"] = dict(ms=(td[1] + td[2]) / 2, ms_mode1=(td[0] + td[3]) / 2,
+                                      plain_ms=tp, bound_ms=tb, bound_by=tby)
+        print(f"[16 window off] flagship B={B}, device ms mode 1 / 0 / 0 / 1: fused "
+              f"{fd[0]:.5f} / {fd[1]:.5f} / {fd[2]:.5f} / {fd[3]:.5f} "
+              f"({(fd[1] + fd[2]) / (fd[0] + fd[3]):.3f}x), plain {fp:.2f} ms, mode-0 bound "
+              f"{fb:.5f} ms ({fby}); voigt_tau {td[0]:.5f} / {td[1]:.5f} / {td[2]:.5f} / "
+              f"{td[3]:.5f} ({(td[1] + td[2]) / (td[0] + td[3]):.3f}x), plain {tp:.2f} ms, "
+              f"mode-0 bound {tb:.5f} ms ({tby})  [{smi}]")
+    return dict(max_abs_err=worst, max_abs_err_tau=worst_tau, logl_rel=drel, mode0=mode0)
+
+
+def phase_window_off_slice(tmp: Path, smi: str, flagship: dict) -> dict:
+    """Phase 16 (b): phase 6's flagship slice with the window off through
+    ``cli.main``, in turns with the same slice windowed (windowed, off,
+    off, windowed: phase 6's own wall holds the process's first-use costs
+    of a fit, which later slices do not pay)."""
+    from mcalf_torch import runner
+    from mcalf_torch.config import readconfig
+    from mcalf_torch.models.torch_model import line_modes, static_spec
+
+    turns = []
+    for i, off in enumerate((False, True, True, False)):
+        out = tmp / f"window_turn{i}"
+        out.mkdir()
+        cfg = out / "fit.cfg"
+        _write_cfg(cfg, out)
+        with _window_off() if off else contextlib.nullcontext():
+            modes = line_modes(static_spec(runner.build_model(readconfig(str(cfg)))))
+            run = _drive_cli(cfg)
+        if set(modes) != ({0} if off else {1}) or len(modes) != 22:
+            raise AssertionError(f"window {'off' if off else 'on'} slice: mode table {modes}")
+        if run["rc"] != 0 or len(run["fits"]) != 1:
+            raise AssertionError(f"window slice turn {i}: cli.main returned {run['rc']}")
+        res, base = run["fits"][0]
+        logz, _, _ = _read_chain_pair(base, 2 + 34)
+        if run["launches"] != run["batches"] or not math.isfinite(logz):
+            raise AssertionError(f"window slice turn {i}: {run['launches']} fused launches for "
+                                 f"{run['batches']} likelihood calls run, logZ {logz}")
+        if not off:
+            for suffix in (".stats", "_equal_weights.txt"):
+                if Path(base + suffix).read_bytes() != Path(flagship["base"] + suffix).read_bytes():
+                    raise AssertionError(f"windowed turn {i}: {suffix} differs from phase 6's")
+        turns.append(dict(off=off, wall=run["wall"], rate=res.n_like / run["wall"],
+                          launches=run["launches"], logz=logz, n_like=res.n_like))
+    rate = lambda off: [t["rate"] for t in turns if t["off"] == off]
+    r0, r1 = rate(True), rate(False)
+    solo = flagship["n_like"] / flagship["wall"]
+    walls = " / ".join(f"{t['wall']:.2f}" for t in turns)
+    rates = " / ".join(f"{t['rate']:.4g}" for t in turns)
+    print(f"[16 window off] flagship slice through cli.main, windowed / off / off / windowed: wall "
+          f"{walls} s, {rates} evals/s ({sum(r0) / sum(r1):.3f}x off against on; phase 6, the process's first fit: "
+          f"{solo:.4g}); modes [0] x 22 in the off turns, fused launches {turns[1]['launches']} = "
+          f"likelihood calls run, n_like {turns[1]['n_like']}, logZ {turns[1]['logz']:.3f} (on: "
+          f"{turns[0]['logz']:.3f}, files byte for byte phase 6's)  [{smi}]")
+    return dict(launches=turns[1]["launches"], rate=sum(r0) / 2, windowed_rate=sum(r1) / 2,
+                first_fit_rate=solo, walls=[t["wall"] for t in turns])
+
+
+def phase_warmup(tmp: Path, smi: str, flagship: dict) -> dict:
+    """Phase 16 (c): ``warmup_executables`` at the flagship's shapes, the
+    first-use caches emptied before it, then phase 6's slice through
+    ``cli.main``: it loads no library and computes no launch geometry, and
+    its files are phase 6's byte for byte."""
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.ops import _build, voigt_cuda
+    from mcalf_torch.sampler import graph, warmup_executables
+
+    _, model, _, cfg, device = _flagship_setup(tmp / "warmup")
+    caches = (_build.load, voigt_cuda._fused_fn, voigt_cuda._tau_fn,
+              voigt_cuda.fused_geometry, voigt_cuda.tau_geometry)
+    for f in caches:
+        f.cache_clear()
+    voigt_cuda._DAMPED.clear()
+    fwd = make_torch_forward(model, device, gpriors=model.gpriors is not None)
+    gen = torch.Generator(device=device).manual_seed(43)
+    start = gen.get_state()
+    graph.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warmup_executables(fwd.loglike_cube, gen, cfg, device)
+    warm_s = time.perf_counter() - t0
+    warm_capture_ms = graph.stats["capture_s"] * 1e3
+    build_s = _build.load().build_seconds
+    misses = [f.cache_info().misses for f in caches]
+    if not torch.equal(gen.get_state(), start) or misses[0] != 1:
+        raise AssertionError(f"warm-up: generator moved or {misses[0]} library loads")
+    run = _drive_cli(tmp / "warmup" / "fit.cfg")
+    after = [f.cache_info().misses for f in caches]
+    if after != misses:
+        raise AssertionError(f"warm-up: the slice after it missed the caches {misses} -> {after}")
+    res, base = run["fits"][0]
+    for suffix in (".stats", "_equal_weights.txt"):
+        if Path(base + suffix).read_bytes() != Path(flagship["base"] + suffix).read_bytes():
+            raise AssertionError(f"warm-up: the slice's {suffix} differs from phase 6's")
+    capture_ms = run["graph"]["capture_s"] * 1e3
+    share = capture_ms / 1e3 / run["wall"]
+    print(f"[16 warm-up] warmup_executables at the flagship's shapes (ndim 34, nlive 200, B=100, "
+          f"{cfg.resolved().num_repeats} repeats), caches emptied: {warm_s:.3f} s, of it the "
+          f"kernel build {build_s:.3f} s (library on disk) and the graph capture "
+          f"{warm_capture_ms:.1f} ms; then phase 6's slice through cli.main: {run['wall']:.2f} s, "
+          f"no library load and no geometry after the warm-up (misses {after}), files byte for "
+          f"byte phase 6's; its own graph capture {capture_ms:.1f} ms, {share:.2%} of its wall  "
+          f"[{smi}]")
+    return dict(warmup_s=warm_s, build_s=build_s, warmup_capture_ms=warm_capture_ms,
+                slice_capture_ms=capture_ms, capture_share=share, slice_wall=run["wall"])
+
+
+def phase_sampler_api(smi: str) -> dict:
+    """Phase 16 (d): ``make_sampler`` against ``nested_sample`` on the
+    flagship, and ``nested_sample_device`` on the Gaussian as one fleet
+    against each seed's solo run."""
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.sampler import make_sampler, nested_sample, nested_sample_device
+    from mcalf_torch.sampler.nested import NSConfig, _nested_sample_device_stacked, finalize
+
+    tmp = ROOT / "build" / "chip_smoke" / "sampler_api"
+    _, model, _, cfg, device = _flagship_setup(tmp)
+    fwd = make_torch_forward(model, device, gpriors=model.gpriors is not None)
+    t0 = time.perf_counter()
+    a = make_sampler(fwd.loglike_cube, cfg)(torch.Generator(device=device).manual_seed(43))
+    b = nested_sample(fwd.loglike_cube, torch.Generator(device=device).manual_seed(43), cfg, device)
+    for k, x in a._asdict().items():
+        y = getattr(b, k)
+        if not (torch.equal(x, y) if torch.is_tensor(x) else x == y):
+            raise AssertionError(f"make_sampler: {k} differs from nested_sample's")
+    pair_s = time.perf_counter() - t0
+    g = DEVICE_GAUSS
+    norm = -0.5 * g["ndim"] * math.log(2 * math.pi * g["sigma"] ** 2)
+
+    def gauss(u):
+        return (norm - 0.5 * torch.sum((u - 0.5) ** 2, dim=-1) / g["sigma"] ** 2).to(torch.float32)
+
+    gcfg = NSConfig(ndim=g["ndim"], nlive=g["nlive"], num_delete=g["num_delete"],
+                    max_samples=g["max_samples"])
+    t0 = time.perf_counter()
+    finals = _nested_sample_device_stacked(
+        lambda u, prob: gauss(u), [torch.Generator(device=device).manual_seed(s) for s in DEVICE_SEEDS],
+        gcfg, device)
+    fleet = [finalize(f, gcfg).numpy() for f in finals]
+    fleet_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for s, m in zip(DEVICE_SEEDS, fleet):
+        one = nested_sample_device(gauss, torch.Generator(device=device).manual_seed(s), gcfg,
+                                   device).numpy()
+        if not (m.logz == one.logz and m.n_like == one.n_like
+                and np.array_equal(m.samples_u, one.samples_u)):
+            raise AssertionError(f"nested_sample_device: seed {s}'s fleet member differs from its "
+                                 f"solo run ({m.logz} against {one.logz})")
+    solo_s = time.perf_counter() - t0
+    logz = np.array([float(m.logz) for m in fleet])
+    sem = float(logz.std(ddof=1) / math.sqrt(len(logz)))
+    bar = max(3.0 * sem, 0.08)
+    print(f"[16 sampler api] make_sampler(...)(gen) byte for byte nested_sample on the flagship "
+          f"slice, seed 43 ({pair_s:.2f} s for both); nested_sample_device on the Gaussian (ndim "
+          f"{g['ndim']}, sigma {g['sigma']}, nlive {g['nlive']}): {len(DEVICE_SEEDS)} seeds as one "
+          f"fleet {fleet_s:.2f} s, each member its solo run bit for bit (solo runs {solo_s:.2f} s); "
+          f"mean logZ {logz.mean():+.4f} (sem {sem:.4f}, bar {bar:.4f}), steps "
+          f"{[int(m.n_iter) for m in fleet]}  [{smi}]")
+    if not abs(logz.mean()) < bar:
+        raise AssertionError(f"nested_sample_device: mean logZ {logz.mean()} outside {bar}")
+    return dict(mean_logz=float(logz.mean()), sem=sem, fleet_s=fleet_s)
+
+
+def phase_wrap_solo(smi: str, wrap: dict) -> dict:
+    """Phase 16 (e): each member of phase 15 (b)'s captured ``'wrap'``
+    fleet (four flagship seeds) against its solo captured run: bit for
+    bit, or the size of the difference in the error."""
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.sampler import nested_sample
+
+    _, model, _, cfg, device = _flagship_setup(ROOT / "build" / "chip_smoke" / "wrap_solo")
+    fwd = make_torch_forward(model, device, conv_mode="wrap", gpriors=model.gpriors is not None)
+    t0 = time.perf_counter()
+    for s, m in zip(FLEET_SEEDS, wrap["members"]):
+        one = nested_sample(fwd.loglike_cube, torch.Generator(device=device).manual_seed(s), cfg,
+                            device).numpy()
+        same = (m.n_like == one.n_like and m.logz == one.logz
+                and np.array_equal(m.samples_u, one.samples_u) and np.array_equal(m.logl, one.logl))
+        if not same:
+            n = min(len(m.logl), len(one.logl))
+            d = np.abs(m.logl[:n].astype(np.float64) - one.logl[:n])
+            raise AssertionError(
+                f"wrap: seed {s}'s fleet member differs from its solo run: n_like {m.n_like} / "
+                f"{one.n_like}, logZ {m.logz} / {one.logz}, {int(np.sum(d[np.isfinite(d)] > 0))} "
+                f"log L differ, the largest by {np.max(d[np.isfinite(d)], initial=0.0)}")
+    wall = time.perf_counter() - t0
+    print(f"[16 wrap solo] conv_mode='wrap': each of seeds {list(FLEET_SEEDS)} of phase 15 (b)'s "
+          f"captured fleet bit for bit its solo captured run (n_like, logZ, samples, log L); "
+          f"the four solo runs {wall:.2f} s  [{smi}]")
+    return dict(members_are_solo=True, wall=wall)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2581,6 +2886,15 @@ def main() -> int:
         wrap = phase_wrap_fleet(tmp, smi, fleet, loops["fleet"]["profile_captured"])
         quad = phase_quadrature(smi)
         sbc = phase_sbc(smi)
+        t16 = time.perf_counter()
+        window = phase_window_off(smi)
+        window_slice = phase_window_off_slice(tmp, smi, flagship)
+        warmup = phase_warmup(tmp, smi, flagship)
+        phase_sampler_api(smi)
+        wrap_solo = phase_wrap_solo(smi, wrap)
+        wall16 = time.perf_counter() - t16
+        print(f"[16 total] phase 16 wall {wall16:.1f} s of its {PHASE16_BUDGET_S:.0f} s budget  "
+              f"[{smi}]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t_start
@@ -2625,6 +2939,15 @@ def main() -> int:
                        for k, v in quad.items()},
             "launches_sbc": sbc["launches"],
             "Q64": sbc["q64"],
+            # phase 16: mode 0 (MCALF_TORCH_WINDOW=0) on the flagship, its
+            # slice, and the warm-up
+            "mode0": window["mode0"]["fused"],
+            "max_abs_err_mode0": window["max_abs_err"],
+            "launches_window_off_slice": window_slice["launches"],
+            "window_off_slice_evals_per_s": window_slice["rate"],
+            "windowed_slice_evals_per_s": window_slice["windowed_rate"],
+            "warmup": {k: warmup[k] for k in ("warmup_s", "build_s", "warmup_capture_ms",
+                                              "slice_capture_ms", "capture_share")},
             "max_abs_err": worst,
             "max_abs_dchi2_ragged": worst_ragged,
             "max_abs_err_stacked": worst_stacked,
@@ -2661,6 +2984,11 @@ def main() -> int:
             # phase 15 (b): the 'wrap' fleet, one launch per stacked call
             "launches_wrap_fleet": wrap["captured"]["launches"],
             "launches_wrap_fleet_eager": wrap["eager"]["launches"],
+            # phase 16 (e): every 'wrap' member its solo run bit for bit
+            "wrap_members_are_solo": wrap_solo["members_are_solo"],
+            # phase 16 (a): mode 0 on the flagship
+            "mode0": window["mode0"]["tau"],
+            "max_abs_err_mode0": window["max_abs_err_tau"],
             "wrap_fleet_ms_per_iter": {k: wrap[k]["ms_per_iter"] for k in ("captured", "eager")},
             "wrap_fleet_device_us_per_iter": wrap["profile"]["kernel_us_per_iter"],
             "max_abs_err": worst_tau,

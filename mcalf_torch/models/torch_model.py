@@ -23,6 +23,7 @@ Algorithm-916/asymptotic ``hjert`` for a strongly damped line.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, Mapping
 
@@ -83,7 +84,8 @@ class StaticSpec:
     #: HARRIS_A_MAX, so the Harris expansion is accurate for every sample
     harris: tuple = ()
     #: per-transition wing threshold on u^2 (0.0 = plain Harris): u^2 >=
-    #: win_tmin[t] takes hjert_wing, with amp_max * e^{-tmin} < 1e-8 in tau
+    #: win_tmin[t] takes hjert_wing, with amp_max * e^{-tmin} < 1e-8 in tau;
+    #: all 0.0 when MCALF_TORCH_WINDOW=0
     win_tmin: tuple = ()
 
 
@@ -100,11 +102,17 @@ def static_spec(
     # Wing-window threshold per transition: the absolute tau error of the
     # dropped exponential, amp_max * e^{-tmin}, stays below 1e-8, with
     # amp_max the static prior bound on the tau amplitude; floored at
-    # HJERT_WIN_TMIN.  Harris transitions only.
+    # HJERT_WIN_TMIN.  Harris transitions only.  MCALF_TORCH_WINDOW=0
+    # switches the window off (the JAX package's MCALF_TPU_WINDOW=0): every
+    # Harris transition then takes the plain Harris expansion on every
+    # pixel (MODE_HARRIS in the kernels).
     n_max = model.bounds_hi[tab["pidx"]]
     amp_max = TAU_CONST * 10.0 ** n_max * tab["f"] / dnu_min
     tmin = np.maximum(HJERT_WIN_TMIN, np.log(np.maximum(amp_max, 1e-30) * 1e8))
-    win_tmin = tuple(float(tm) if h else 0.0 for tm, h in zip(tmin, harris))
+    window_on = os.environ.get("MCALF_TORCH_WINDOW", "1") != "0"
+    win_tmin = tuple(
+        float(tm) if (window_on and h) else 0.0 for tm, h in zip(tmin, harris)
+    )
     return StaticSpec(
         ndim=model.ndim,
         npix=model.npix,

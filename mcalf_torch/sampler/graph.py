@@ -26,7 +26,8 @@ read schedule is :func:`mcalf_torch.sampler.nested._block_loop`'s).
   (:func:`mcalf_torch.utils.profiling.count_launch`) are counted again at
   every replay, so ``voigt_cuda.launches`` counts the launches the card
   ran.  :data:`stats` counts captures, replays, the iterations they ran,
-  warm-up iterations and flag reads in this process.
+  warm-up iterations and flag reads in this process, and the host seconds
+  spent warming up and capturing.
 
 A likelihood that cannot be captured (one that reads the device, such as a
 ``.item()`` or a ``bool`` of a CUDA tensor) makes the capture raise, naming
@@ -36,6 +37,7 @@ the likelihood; nothing falls back to the eager loop.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Sequence
 
 import torch
@@ -45,9 +47,10 @@ from mcalf_torch.utils.profiling import captured_launches
 __all__ = ["BlockGraph", "count", "stats", "reset_stats"]
 
 #: what the captured slice loops of this process did: graphs captured,
-#: replays, slice iterations those replays ran, warm-up iterations, and
-#: host reads of the loop's flags
-stats = dict(captures=0, replays=0, iterations=0, warmups=0, reads=0)
+#: replays, slice iterations those replays ran, warm-up iterations, host
+#: reads of the loop's flags, and the host seconds the warm-ups and
+#: captures took
+stats = dict(captures=0, replays=0, iterations=0, warmups=0, reads=0, capture_s=0.0)
 _stats_lock = threading.Lock()
 
 
@@ -82,6 +85,7 @@ class BlockGraph:
                 "the slice loop's captured draws need it"
             )
         self.iterations = iterations
+        t0 = time.perf_counter()
         saved = [g.get_state() for g in gens]
         before = [g.get_offset() for g in gens]
         side = torch.cuda.Stream()
@@ -116,7 +120,7 @@ class BlockGraph:
                 "slice loop on a CUDA device runs only as replays of one): "
                 f"{type(failure).__name__}: {failure}"
             ) from failure
-        count(captures=1)
+        count(captures=1, capture_s=time.perf_counter() - t0)
 
     def replay(self) -> None:
         self.graph.replay()

@@ -27,9 +27,11 @@ counters as Python ints.  The slice loop, which the JAX package runs as a
 replays of a CUDA graph of :data:`BLOCK_ITERATIONS` iterations, the host
 reading the loop's flags only between replays (:mod:`.graph`); on the CPU
 it is an eager loop with one host read per iteration.  Both run the same
-body (:func:`_slice_iter`) and give the same bits.  The JAX package's
-``warmup_executables`` has no counterpart: a run captures its graph at its
-first outer step (one warm-up iteration, then the capture), and keeps it.
+body (:func:`_slice_iter`) and give the same bits.  A run captures its
+graph at its first outer step (one warm-up iteration, then the capture),
+and keeps it for the run; :func:`warmup_executables` pays the first-use
+costs that outlive a run (the kernels' library, launch geometries, CUDA's
+initialisation) before a fit.
 
 Several independent problems run together as a fleet
 (:func:`nested_sample_stacked`, the JAX package's ``vmap``/``shard_map``
@@ -60,7 +62,9 @@ __all__ = [
     "finalize",
     "init_state",
     "is_done",
+    "make_sampler",
     "nested_sample",
+    "nested_sample_device",
     "nested_sample_stacked",
     "nsstate_from_numpy",
     "nsstate_to_numpy",
@@ -70,6 +74,7 @@ __all__ = [
     "stack_states",
     "unstack_results",
     "unstack_states",
+    "warmup_executables",
     "DEFAULT_CHUNK_STEPS",
 ]
 
@@ -1303,10 +1308,7 @@ def nested_sample_stacked(
     _check_bracket(cfg)
     Q = len(gens)
     if states is None:
-        live_u = [_draw_live(g, cfg, device) for g in gens]
-        rows = torch.arange(Q, dtype=torch.int32, device=device).repeat_interleave(cfg.nlive)
-        live_logl = loglike_rows(torch.cat(live_u), rows).reshape(Q, cfg.nlive)
-        states = [_fresh_state(u, l, cfg) for u, l in zip(live_u, live_logl)]
+        states = _initial_states(loglike_rows, gens, cfg, device)
     else:
         states = list(states)
         for s, g in zip(states, gens):
@@ -1351,3 +1353,99 @@ def nested_sample_stacked(
     return states
 
 
+def _initial_states(loglike_rows, gens, cfg: NSConfig, device) -> List[NSState]:
+    """Each problem's :func:`init_state`, its live set drawn from its own
+    generator, all the live sets' likelihoods in one call."""
+    Q = len(gens)
+    live_u = [_draw_live(g, cfg, device) for g in gens]
+    rows = torch.arange(Q, dtype=torch.int32, device=device).repeat_interleave(cfg.nlive)
+    live_logl = loglike_rows(torch.cat(live_u), rows).reshape(Q, cfg.nlive)
+    return [_fresh_state(u, l, cfg) for u, l in zip(live_u, live_logl)]
+
+
+def nested_sample_device(
+    loglike_batch: Callable, gen: torch.Generator, config: NSConfig,
+    device: "torch.device | str",
+) -> NSResults:
+    """The whole fit as a fixed budget of outer steps, as the JAX package's
+    ``nested_sample_device``: :func:`init_state`, :func:`run_steps` for
+    ``max_samples // num_delete + 2`` outer steps (fewer when the run
+    terminates), :func:`finalize`.  There are no chunk boundaries, so the
+    live set is never re-clustered: every direction comes from the one
+    cluster the live set starts in.
+
+    On a CUDA device the slice loop is the captured one (:class:`_SliceBlocks`),
+    and what the host still reads is one termination flag per outer step
+    and the slice loop's flags between replays of its graph (a CUDA graph
+    without conditional nodes cannot end a loop on the device).  Its draws
+    and bits are those of :func:`_nested_sample_device_stacked` with one
+    problem."""
+    cfg = config.resolved()
+    [final] = _nested_sample_device_stacked(_one_problem(loglike_batch), [gen], cfg, device)
+    return finalize(final, cfg)
+
+
+def _nested_sample_device_stacked(
+    loglike_rows: Callable, gens: Sequence[torch.Generator], config: NSConfig,
+    device: "torch.device | str",
+) -> List[NSState]:
+    """:func:`nested_sample_device` for Q problems at once, one generator
+    each, as :func:`nested_sample_stacked` stacks them: every outer step
+    stacks the slice chains of the problems still running, and problem q
+    ends bit for bit in the state its solo :func:`nested_sample_device`
+    gives it.  Returns the final states."""
+    cfg = config.resolved()
+    _check_bracket(cfg)
+    states = _initial_states(loglike_rows, gens, cfg, device)
+    cum_dlogx = _cum_dlogx(cfg, states[0].live_u.device)
+    graphs = {}  # the run's captured slice loops
+    for _ in range(int(cfg.max_samples) // cfg.num_delete + 2):
+        stepping = [q for q, s in enumerate(states) if _not_done(s, cfg)]
+        if not stepping:
+            break
+        new = _steps(loglike_rows, [states[q] for q in stepping], [gens[q] for q in stepping],
+                     stepping, cfg, cum_dlogx, graphs=graphs)
+        for q, s in zip(stepping, new):
+            states[q] = s
+    return states
+
+
+def make_sampler(loglike_batch: Callable, config: NSConfig) -> Callable[[torch.Generator], NSResults]:
+    """``run(gen) -> NSResults``: :func:`nested_sample` of ``loglike_batch``
+    at ``config`` on the generator's device (the card for a CUDA
+    generator, the CPU only for a CPU one)."""
+
+    def run(gen: torch.Generator) -> NSResults:
+        return nested_sample(loglike_batch, gen, config, gen.device)
+
+    return run
+
+
+def warmup_executables(
+    loglike_batch: Callable, gen: torch.Generator, config: NSConfig,
+    device: "torch.device | str",
+) -> None:
+    """Pay the fit path's first-use costs up front without running a fit:
+    :func:`init_state`, :func:`_recluster`, two outer steps of
+    :func:`run_steps`, :func:`is_done` and :func:`finalize` at ``config``
+    on ``device``, drawing from a copy of ``gen`` (the caller's generator
+    stays where it was, as the JAX package's takes its key by value).
+
+    What stays resident for a later fit at the same shapes: the kernels'
+    library (``ops._build.load``: built by ``nvcc`` at first use, or loaded
+    from its on-disk cache), the launch geometries (``voigt_cuda``'s
+    ``fused_geometry`` and ``tau_geometry``), the mode table's device read
+    for this likelihood's tables (``voigt_cuda._any_damped``), CUDA's lazy
+    initialisation and the caching allocator's blocks at the fit's shapes.
+    A fit still captures its own slice-loop graph at its first outer step:
+    a graph lives for one run."""
+    cfg = config.resolved()
+    copy = torch.Generator(device=gen.device)
+    copy.set_state(gen.get_state())
+    state = init_state(loglike_batch, copy, cfg, device)
+    state = _recluster(state, cfg)
+    state = run_steps(loglike_batch, state, cfg, 2, copy)
+    is_done(state, cfg)
+    finalize(state, cfg)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

@@ -45,14 +45,28 @@ _OPTIONAL = ("rng",)
 Fingerprint = Dict[str, Union[int, float, str]]
 
 
+def _device(device) -> torch.device:
+    """``device``, or the current CUDA device when None (raising without
+    one: nothing moves to the CPU unless the caller asks for it)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no device given and torch finds no CUDA GPU: pass device=\"cpu\" "
+            "to run on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def problem_fingerprint(
-    model, cfg, seed: int, device: "torch.device | str" = "cpu"
+    model, cfg, seed: int, device: "torch.device | str | None" = None
 ) -> Fingerprint:
     """Fingerprint of (problem, sampler config, seed, generator device type),
     so that a resumed checkpoint provably belongs to the current run.
     Hashes the spectrum data and prior bounds; records the sampler's shape
     parameters.  The keys of the JAX package's fingerprint, and
-    ``rng_device``."""
+    ``rng_device``: the type of ``device``, the current CUDA device when
+    None (which raises without a card)."""
     h = hashlib.sha256()
     for arr in (model.wave, model.flux, model.noise, model.bounds):
         h.update(np.ascontiguousarray(np.asarray(arr, np.float64)).tobytes())
@@ -65,7 +79,7 @@ def problem_fingerprint(
         "max_samples": int(r.max_samples),
         "seed": int(seed),
         "data_hash": h.hexdigest(),
-        "rng_device": torch.device(device).type,
+        "rng_device": _device(device).type,
     }
 
 
@@ -87,15 +101,17 @@ def save_state(
 def load_state(
     path: str,
     fingerprint: Optional[Fingerprint] = None,
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str | None" = None,
 ) -> NSState:
     """Load a sampler state saved by :func:`save_state` (the port's or the
-    JAX package's) onto ``device``.
+    JAX package's) onto ``device``: the current CUDA device when None
+    (which raises without a card; ``device="cpu"`` loads onto the CPU).
 
     When ``fingerprint`` is given, the checkpoint must carry a matching
     one: resuming a checkpoint of a different problem, sampler config, seed
     or generator device type silently gives wrong posteriors whenever the
     array shapes happen to coincide, so a mismatch raises instead."""
+    device = _device(device)
     with np.load(path) as z:
         required = [f for f in NSState._fields if f not in _OPTIONAL]
         hard_missing = [f for f in required if f not in z and f not in _BACKFILLED]

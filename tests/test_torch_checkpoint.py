@@ -93,7 +93,7 @@ def test_checkpoint_roundtrip_and_resume(tmp_path):
     save_state(path, state)
     assert latest_checkpoint(str(tmp_path)) == path
 
-    loaded = load_state(path)
+    loaded = load_state(path, device="cpu")
     _same_state(state, loaded)
     assert isinstance(loaded.n_dead, int) and isinstance(loaded.step, int)
 
@@ -121,7 +121,7 @@ def test_resume_from_every_chunk_boundary_is_bit_identical(tmp_path):
         save_state(path, s)
         steps = []
         res = nested_sample(
-            ll, _gen(1234), cfg, "cpu", state=load_state(path),
+            ll, _gen(1234), cfg, "cpu", state=load_state(path, device="cpu"),
             on_chunk=lambda t: steps.append(t.step),
         )
         assert steps == [t.step for t in saved[i + 1:]]  # the same boundaries
@@ -138,21 +138,21 @@ def test_fingerprint_mismatch_rejected(tmp_path):
     save_state(path, state, fingerprint=fp)
 
     # matching fingerprint loads fine
-    load_state(path, fingerprint=fp)
+    load_state(path, fingerprint=fp, device="cpu")
     # any field differing is rejected
     with pytest.raises(ValueError, match="fingerprint mismatch"):
-        load_state(path, fingerprint=dict(fp, seed=1))
+        load_state(path, fingerprint=dict(fp, seed=1), device="cpu")
     with pytest.raises(ValueError, match="fingerprint mismatch"):
-        load_state(path, fingerprint=dict(fp, data_hash="def"))
+        load_state(path, fingerprint=dict(fp, data_hash="def"), device="cpu")
     # a checkpoint of the other device type says why it is refused
     with pytest.raises(ValueError, match="rng_device.*device type"):
-        load_state(path, fingerprint=dict(fp, rng_device="cuda"))
+        load_state(path, fingerprint=dict(fp, rng_device="cuda"), device="cpu")
     # a legacy checkpoint without fingerprints is rejected when one is required
     save_state(path, state)
     with pytest.raises(ValueError, match="no fingerprint"):
-        load_state(path, fingerprint=fp)
+        load_state(path, fingerprint=fp, device="cpu")
     # ...but loads when no check is requested
-    load_state(path)
+    load_state(path, device="cpu")
 
 
 def test_generator_state_of_other_device_type_refused():
@@ -174,7 +174,7 @@ def test_legacy_checkpoint_missing_dead_rank_backfilled(tmp_path):
         if k not in ("dead_rank", "live_cluster")
     }
     np.savez(path, **arrays)
-    loaded = load_state(path)
+    loaded = load_state(path, device="cpu")
     assert loaded.dead_rank.shape == (8000,) and loaded.dead_rank.dtype == torch.int32
     assert bool((loaded.dead_rank == -1).all())
     assert loaded.live_cluster.shape == (100,) and not bool(loaded.live_cluster.any())
@@ -183,7 +183,7 @@ def test_legacy_checkpoint_missing_dead_rank_backfilled(tmp_path):
     arrays.pop("live_u")
     np.savez(path, **arrays)
     with pytest.raises(ValueError, match="missing fields"):
-        load_state(path)
+        load_state(path, device="cpu")
 
 
 def test_prune_checkpoints(tmp_path):
@@ -225,7 +225,7 @@ def test_jax_checkpoint_loads_in_the_port(tmp_path):
     path = str(tmp_path / "ns_state_000006.npz")
     jckpt.save_state(path, js, fingerprint=fp)
 
-    ts = load_state(path, fingerprint=fp)  # the keys both packages have
+    ts = load_state(path, fingerprint=fp, device="cpu")  # the keys both packages have
     got = nsstate_to_numpy(ts)
     assert set(got) == set(js._fields) - {"key"} and ts.rng is None
     for k, v in got.items():
@@ -233,7 +233,7 @@ def test_jax_checkpoint_loads_in_the_port(tmp_path):
     assert (ts.n_dead, ts.n_like, ts.step) == (int(js.n_dead), int(js.n_like), 6)
     assert ts.live_u.dtype == torch.float32 and ts.dead_rank.dtype == torch.int32
     with pytest.raises(ValueError, match="no fingerprint field 'rng_device'"):
-        load_state(path, fingerprint=dict(fp, rng_device="cpu"))
+        load_state(path, fingerprint=dict(fp, rng_device="cpu"), device="cpu")
 
     # it goes on in the port, on the generator passed in
     res = nested_sample(_loglike(), _gen(7), CFG, "cpu", state=ts)
@@ -243,7 +243,7 @@ def test_jax_checkpoint_loads_in_the_port(tmp_path):
     # and in the JAX package under its field names
     mine = str(tmp_path / "port.npz")
     save_state(mine, ts._replace(rng=_gen(3).get_state()), fingerprint=fp)
-    back = load_state(mine, fingerprint=fp)
+    back = load_state(mine, fingerprint=fp, device="cpu")
     _same_state(back, ts._replace(rng=_gen(3).get_state()))
     with np.load(mine) as z:
         assert set(js._fields) - {"key"} <= set(z.files)
@@ -267,4 +267,27 @@ def test_problem_fingerprint_matches_jax_on_shared_keys():
         assert {k: got[k] for k in want} == want
         assert set(got) - set(want) == {"rng_device"} and got["rng_device"] == "cpu"
     assert problem_fingerprint(tm, NSConfig(ndim=7), 1, "cuda:0")["rng_device"] == "cuda"
-    assert tckpt.problem_fingerprint(tm, NSConfig(ndim=7), 1)["seed"] == 1
+    assert tckpt.problem_fingerprint(tm, NSConfig(ndim=7), 1, "cpu")["seed"] == 1
+
+
+def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """Without a device, load_state and problem_fingerprint take the current
+    CUDA device, as every other entry point of the port does, and raise
+    without one, naming device="cpu"; nothing moves to the CPU unasked."""
+    from mcalf_torch.models import AbsorptionModel
+
+    path = str(tmp_path / "ns_state_0000.npz")
+    save_state(path, init_state(_loglike(), _gen(0), CFG, "cpu"))
+    model = AbsorptionModel.from_file(
+        str(TESTDATA / "civ_mock_spec.txt"), fitrange=[(6180.0, 6220.0)],
+        fitlines=["CIV 1548", "CIV 1550"], ncomp=(1, 1), specres=[8.0],
+        Nrange=[12.0, 14.5], brange=[10.0, 40.0], zrange=[2.99, 3.01],
+    )
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        load_state(path)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        problem_fingerprint(model, CFG, 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert problem_fingerprint(model, CFG, 1)["rng_device"] == "cuda"

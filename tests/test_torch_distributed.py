@@ -97,7 +97,7 @@ straight = fit_stacked(spec, stacked, cfg, seed=5, mesh=mesh, chunk_steps=3, on_
 assert len(seen) >= 2, seen
 assert all(b == [2 * RANK, 2 * RANK + 1] for b in seen), seen
 resumed = fit_stacked(spec, stacked, cfg, seed=5, mesh=mesh, chunk_steps=3,
-                      states=load_state(path))
+                      states=load_state(path, device="cpu"))
 for k, a in straight._asdict().items():
     b = getattr(resumed, k)
     assert np.array_equal(np.asarray(a.numpy() if torch.is_tensor(a) else a),

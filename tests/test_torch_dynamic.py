@@ -130,7 +130,7 @@ def test_dynamic_resume_bit_identical(tmp_path):
     # and seeding and boost follow as before.
     bpath = str(tmp_path / "ns_state_final.npz")
     save_state(bpath, saved["base"][-1])
-    from_base = dynamic_sample(ll, _gen(77), cfg, "cpu", base_state=load_state(bpath))
+    from_base = dynamic_sample(ll, _gen(77), cfg, "cpu", base_state=load_state(bpath, device="cpu"))
     assert from_base.l_init == straight.l_init
     assert from_base.merged.logz == straight.merged.logz
     np.testing.assert_array_equal(from_base.boost.samples_u, straight.boost.samples_u)
@@ -141,7 +141,8 @@ def test_dynamic_resume_bit_identical(tmp_path):
     save_state(opath, saved["boost"][0])
     resumed = dynamic_sample(
         ll, _gen(78), cfg, "cpu",
-        base_state=load_state(bpath), boost_state=load_state(opath),
+        base_state=load_state(bpath, device="cpu"),
+        boost_state=load_state(opath, device="cpu"),
     )
     assert resumed.merged.logz == straight.merged.logz
     assert resumed.l_init == straight.l_init

@@ -4,7 +4,10 @@ and bar, for each bracket.  The reference calls it the regression net for
 the batch-deletion threshold (an off-by-one biases it +0.12 nats) and for
 the step-out kernel.  The 24 seeds run as one stacked fleet
 (``nested_sample_stacked``): seed s's run is bit for bit its solo run
-(tests/test_torch_fleet.py), only faster here.
+(tests/test_torch_fleet.py), only faster here.  The reference's test runs
+``nested_sample_device`` (a fixed budget of outer steps, no
+re-clustering); its twin here runs the port's through its stacked form,
+whose members are their solo runs (tests/test_torch_sampler_api.py).
 """
 
 import math
@@ -14,7 +17,7 @@ import pytest
 import torch
 
 from mcalf_torch.sampler import NSConfig, finalize
-from mcalf_torch.sampler.nested import nested_sample_stacked
+from mcalf_torch.sampler.nested import _nested_sample_device_stacked, nested_sample_stacked
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -25,17 +28,28 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+NDIM, SIGMA, NSEEDS = 4, 0.08, 24
+
+
+def _rows(u, prob):  # every seed fits the same normalised Gaussian
+    norm = -0.5 * NDIM * math.log(2 * math.pi * SIGMA**2)
+    return (norm - 0.5 * torch.sum((u - 0.5) ** 2, dim=-1) / SIGMA**2).to(torch.float32)
+
+
+def _unbiased(run, cfg):
+    finals = run(_rows, [torch.Generator().manual_seed(s) for s in range(NSEEDS)], cfg, "cpu")
+    logzs = np.array([float(finalize(f, cfg).logz) for f in finals])
+    sem = logzs.std(ddof=1) / np.sqrt(NSEEDS)
+    assert abs(logzs.mean()) < max(3.0 * sem, 0.08), (logzs.mean(), sem)
+
+
 @pytest.mark.parametrize("bracket", ("chord", "stepout"))
 def test_evidence_unbiased_over_seeds(bracket):
-    ndim, sigma, nseeds = 4, 0.08, 24
-    norm = -0.5 * ndim * math.log(2 * math.pi * sigma**2)
+    cfg = NSConfig(ndim=NDIM, nlive=100, num_delete=25, max_samples=8000, bracket=bracket)
+    _unbiased(nested_sample_stacked, cfg)
 
-    def rows(u, prob):  # every seed fits the same Gaussian
-        return (norm - 0.5 * torch.sum((u - 0.5) ** 2, dim=-1) / sigma**2).to(torch.float32)
 
-    cfg = NSConfig(ndim=ndim, nlive=100, num_delete=25, max_samples=8000, bracket=bracket)
-    finals = nested_sample_stacked(
-        rows, [torch.Generator().manual_seed(s) for s in range(nseeds)], cfg, "cpu")
-    logzs = np.array([float(finalize(f, cfg).logz) for f in finals])
-    sem = logzs.std(ddof=1) / np.sqrt(nseeds)
-    assert abs(logzs.mean()) < max(3.0 * sem, 0.08), (logzs.mean(), sem)
+def test_device_evidence_unbiased_over_seeds():
+    """``nested_sample_device``, at the reference test's settings."""
+    cfg = NSConfig(ndim=NDIM, nlive=100, num_delete=25, max_samples=8000)
+    _unbiased(_nested_sample_device_stacked, cfg)

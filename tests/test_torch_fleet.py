@@ -214,7 +214,7 @@ def test_fit_stacked_resumes_byte_for_byte(tmp_path):
     with pytest.raises(Killed):
         run(on_chunk=die_after_two)
     assert chunks == [(10, 10), (20, 20)]
-    loaded = load_state(saved[1], fingerprint={"nprob": 2})
+    loaded = load_state(saved[1], fingerprint={"nprob": 2}, device="cpu")
     assert loaded.step == (20, 20) and loaded.rng.shape[0] == 2
     # the generators go on from the saved states, whatever they stood at
     resumed = fit_stacked(spec, stacked, RESUME_CFG, mesh=mesh, chunk_steps=10,
@@ -238,7 +238,7 @@ def test_stacked_state_checkpoint_round_trip(tmp_path):
     assert stacked.n_dead == (states[0].n_dead, states[1].n_dead)
     path = str(tmp_path / "s.npz")
     save_state(path, stacked)
-    back = unstack_states(load_state(path))
+    back = unstack_states(load_state(path, device="cpu"))
     for a, b in zip(states, back):
         x, y = nsstate_to_numpy(a), nsstate_to_numpy(b)
         assert set(x) == set(y)

@@ -7,7 +7,11 @@ CUDA device.  No jax here, so on a machine with a card:
 * captured = eager bit for bit (samples, log L, logZ, evaluations, the
   generator's state at every chunk boundary) on a small Gaussian and on the
   1-comp CIV anchor;
-* a fleet member is its solo run, both captured;
+* a fleet member is its solo run, both captured, in conv_mode='same_edge'
+  (the fused kernel) and in 'wrap' (the tau kernel and the chi^2 sums over
+  rows of every member);
+* after ``warmup_executables`` a fit at the same shapes builds, loads and
+  measures nothing new;
 * the likelihood in conv_mode='wrap' (the tau kernel), solo and as a
   fleet, captured = eager;
 * fused-kernel launches counted by replay equal the fused kernel's runs
@@ -120,17 +124,22 @@ def test_launches_count_replays(cuda, tmp_path):
     assert runs == voigt_cuda.launches
 
 
-def test_member_is_solo_captured(cuda):
+def _members_are_solo(cuda, conv_mode):
+    """Three seeds of the 1-comp anchor as one captured fleet: each member
+    is its solo captured run bit for bit, its generator left where the solo
+    run leaves it."""
     from mcalf_torch.models.batched import stack_problems
     from mcalf_torch.parallel import fit_stacked
     from mcalf_torch.sampler.nested import unstack_results
 
-    m, loglike = _anchor(cuda)
+    m = AbsorptionModel.from_file(str(TESTDATA / "civ_mock_spec.txt"), ncomp=(1, 1), **_CIV)
+    loglike = make_torch_forward(m, cuda, conv_mode=conv_mode).loglike_cube
     cfg = NSConfig(ndim=m.ndim, nlive=40, num_repeats=6, max_samples=2000)
     seeds = (1, 2, 3)
     graph.reset_stats()
     gens = [torch.Generator(device=cuda).manual_seed(s) for s in seeds]
-    res = fit_stacked(*stack_problems([m] * 3), cfg, mesh=[cuda], generators=gens)
+    res = fit_stacked(*stack_problems([m] * 3, conv_mode=conv_mode), cfg, mesh=[cuda],
+                      generators=gens)
     assert graph.stats["captures"] >= 1
     members = unstack_results(res)
     assert len({r.n_iter for r in members}) > 1  # they leave the stack at different steps
@@ -141,6 +150,17 @@ def test_member_is_solo_captured(cuda):
         assert torch.equal(member.samples_u, one.samples_u)
         assert torch.equal(member.logl, one.logl)
         assert torch.equal(g.get_state(), solo_gen.get_state())
+
+
+def test_member_is_solo_captured(cuda):
+    _members_are_solo(cuda, "same_edge")
+
+
+def test_wrap_member_is_solo_captured(cuda):
+    """In conv_mode='wrap' the fleet's chi^2 and asymmlike counts are sums
+    over the rows of every member, (3 B, P) against the solo run's (B, P):
+    a CUDA reduction must not split a row differently for more rows."""
+    _members_are_solo(cuda, "wrap")
 
 
 def test_captured_equals_eager_wrap(cuda):
@@ -220,3 +240,29 @@ def test_uncapturable_likelihood_raises(cuda):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "RAISED the likelihood " in proc.stdout
     assert "reads_the_device cannot be captured in a CUDA graph" in proc.stdout
+
+
+@pytest.mark.parametrize("conv_mode", ("same_edge", "wrap"))
+def test_fit_after_warmup_builds_nothing(cuda, conv_mode):
+    """The twin of tests/test_warmup.py: after warmup_executables a fit at
+    the same shapes loads no library and computes no launch geometry (the
+    caches start empty here, so the warm-up has to fill them)."""
+    from mcalf_torch.ops import _build
+    from mcalf_torch.sampler import warmup_executables
+
+    m = AbsorptionModel.from_file(str(TESTDATA / "civ_mock_spec.txt"), ncomp=(1, 1), **_CIV)
+    loglike = make_torch_forward(m, cuda, conv_mode=conv_mode).loglike_cube
+    cfg = NSConfig(ndim=m.ndim, nlive=40, num_repeats=8, max_samples=1200)
+    caches = (_build.load, voigt_cuda._fused_fn, voigt_cuda._tau_fn,
+              voigt_cuda.fused_geometry, voigt_cuda.tau_geometry)
+    for f in caches:
+        f.cache_clear()
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    start = gen.get_state()
+    warmup_executables(loglike, gen, cfg, cuda)
+    assert torch.equal(gen.get_state(), start)
+    warm = [f.cache_info().misses for f in caches]
+    assert warm[0] == 1 and sum(warm[3:]) > 0
+    res = nested_sample(loglike, gen, cfg, cuda)
+    assert torch.isfinite(res.logz)
+    assert [f.cache_info().misses for f in caches] == warm

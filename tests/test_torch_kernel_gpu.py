@@ -32,6 +32,8 @@ _CIV = dict(
 MODELS = {
     # the flagship with the asymmetric likelihood: all windowed Harris
     "flagship": dict(_CIV, ncomp=(8, 11), brange=[10.0, 40.0], Asymmlike=True),
+    # the flagship as testdata/fit.cfg has it (no asymmetric likelihood)
+    "flagship_symm": dict(_CIV, ncomp=(8, 11), brange=[10.0, 40.0]),
     # brange = 3, 40: all 22 transitions strongly damped (full hjert)
     "narrow": dict(_CIV, ncomp=(8, 11), brange=[3.0, 40.0], Asymmlike=True),
     # CIV 1548 + HI 1215 + filler: windowed Harris and full hjert
@@ -483,3 +485,70 @@ def test_fleet_member_is_the_solo_fit_on_the_card():
         assert torch.equal(member.samples_u, one.samples_u) and torch.equal(member.logl, one.logl)
     # one launch per stacked call: as many as the longest member's own
     assert solo_launches <= fleet_launches < 3 * solo_launches
+
+
+# ---- the wing window switched off: mode 0 (plain Harris) on every pixel ----
+
+def _window_pair(name):
+    """A model of all-Harris transitions with MCALF_TORCH_WINDOW=0: every
+    transition in MODE_HARRIS, the counterpart of the plain-Harris branch
+    of the JAX package's _ll_kernel and _tau_kernel.  Beside it the same
+    model with the window on."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MCALF_TORCH_WINDOW", "0")
+        off = _forward(name)
+    on = _forward(name)
+    assert off.modes.tolist() == [voigt_cuda.MODE_HARRIS] * off.static.ntrans
+    assert set(on.modes.tolist()) == {voigt_cuda.MODE_WINDOWED}
+    return off, on
+
+
+@pytest.fixture(scope="module")
+def window_off():
+    return _window_pair("flagship")
+
+
+@pytest.mark.parametrize("B", (100, 37, 1))
+def test_window_off_kernel_matches_plain(window_off, B):
+    fwd = window_off[0]
+    s, c = fwd.static, fwd.consts()
+    args = _args(fwd, B, seed=B + 11)
+    u = torch.from_numpy(
+        np.random.default_rng(B + 11).uniform(0.02, 0.98, (B, s.ndim)).astype(np.float32)
+    ).cuda()
+    p = tm.cube_to_params_core(u, c)
+    kw = dict(half=s.half, asymm=s.asymmlike)
+    before = voigt_cuda.launches
+    k = voigt_cuda.fused_loglike(*args, **kw)
+    assert voigt_cuda.launches == before + 1
+    q = voigt_cuda.fused_loglike_plain(*args, **kw)
+    np.testing.assert_allclose(k[0].cpu().numpy(), q[0].cpu().numpy(), rtol=1e-5, atol=0.1)
+    ll = [tm.loglike_from_fused(p, c, s, *x).double().cpu().numpy() for x in (k, q)]
+    assert np.array_equal(np.isfinite(ll[0]), np.isfinite(ll[1]))
+    fin = np.isfinite(ll[1])
+    np.testing.assert_allclose(ll[0][fin], ll[1][fin], rtol=1e-5, atol=0.05)
+
+
+@pytest.mark.parametrize("B", (100, 1000))
+def test_window_off_tau_matches_plain(window_off, B):
+    targs = (lambda a: a[:6] + a[11:])(_args(window_off[0], B, seed=3 * B))
+    before = voigt_cuda.tau_launches
+    k = voigt_cuda.voigt_tau(*targs)
+    assert voigt_cuda.tau_launches == before + 1
+    q = voigt_cuda.voigt_tau_plain(*targs)
+    err = ((k - q).abs() / (q.abs() + 1e-3)).max().item()
+    assert err < 3e-5, err
+
+
+def test_window_off_likelihood_matches_window_on():
+    """The twin of tests/test_windowing.py::test_windowed_matches_unwindowed_likelihood
+    on the card, on its flagship (no asymmetric likelihood): switching the
+    window off moves log L by less than 3e-6 relative."""
+    off, on = _window_pair("flagship_symm")
+    u = torch.from_numpy(
+        np.random.default_rng(9).uniform(0.02, 0.98, (64, off.ndim)).astype(np.float32)
+    ).cuda()
+    l0 = off.loglike_cube(u).double().cpu().numpy()
+    lw = on.loglike_cube(u).double().cpu().numpy()
+    assert np.isfinite(l0).all() and np.isfinite(lw).all()
+    assert np.max(np.abs(lw - l0) / (np.abs(l0) + 1.0)) < 3e-6
