@@ -11,7 +11,11 @@ fit.cfg`` (``WORLD_SIZE`` > 1 in the environment) the processes join one
 group (:func:`mcalf_torch.parallel.init_distributed`) and split a seed
 ensemble or a spectrum list whose count N divides; only rank 0 prints,
 writes the chain files and plots, and each process reports its wall and
-fused-kernel launches in one line on its stderr.  Plotting
+fused-kernel launches in one line on its stderr.  ``--debug`` also turns
+the slice loop's row counters on (:func:`mcalf_torch.utils.profiling.enable_counters`)
+and prints, per seed, the proposals per slice pass and the share of the
+evaluated rows that were masked, and the seconds of each phase span of the
+fit, one line per name.  Plotting
 (:mod:`mcalf_torch.plotting`) reads the chain files back, so
 ``dofit``/``doplot`` can run in separate invocations; with several spectra
 it plots each.
@@ -74,6 +78,25 @@ def _report_rank(wall: float, device: str) -> None:
 
 
 def _run(args, configpars) -> int:
+    if not args.debug:
+        return _fit_and_plot(args, configpars)
+    # --debug counts the slice loop's active rows (printed per seed) and
+    # prints the seconds of each phase span of this fit
+    from mcalf_torch.utils import profiling
+
+    before = {k: len(v) for k, v in profiling.get_timings().items()}
+    was = profiling.enable_counters(True)
+    try:
+        return _fit_and_plot(args, configpars)
+    finally:
+        profiling.enable_counters(was)
+        for name, spans in sorted(profiling.get_timings().items()):
+            spans = spans[before.get(name, 0):]
+            if spans:
+                print(f"[DEBUG]: span {name}: {len(spans)} x, {sum(spans):.3f} s")
+
+
+def _fit_and_plot(args, configpars) -> int:
     # Multi-process fleets print from rank 0 only (the reference gates its
     # output to MPI rank 0); is_rank0 initialises nothing.
     from mcalf_torch.utils.rank import is_rank0, writes_files

@@ -555,6 +555,9 @@ def run_fit(
             ).numpy()
             post = res
             runs = [("", res, cfg)]
+            if debug and state is None:
+                print(f"[DEBUG]: seed {seed}: logZ = {float(res.logz):.3f}"
+                      f"{_row_counts(gen, res, cfg)}")
     print("Execution time {}".format(datetime.datetime.now() - t0))
 
     stats_extra = []
@@ -670,14 +673,15 @@ def _write_chain_files(base, fwd, post, resample_S, extra_lines=()):
     multi-process run alone writes."""
     if not writes_files():
         return
-    write_stats(base + ".stats", float(post.logz), float(post.logzerr), extra_lines)
-    S = resample_S if resample_S > 0 else int(
-        np.isfinite(post.log_posterior_weights).sum()
-    )
-    su, logl = resample_equal(torch.Generator().manual_seed(42), post, S)
-    write_equal_weights(
-        base + "_equal_weights.txt", equal_weights_matrix(_physical(fwd, su), logl)
-    )
+    with phase_timer("runner.files"):
+        write_stats(base + ".stats", float(post.logz), float(post.logzerr), extra_lines)
+        S = resample_S if resample_S > 0 else int(
+            np.isfinite(post.log_posterior_weights).sum()
+        )
+        su, logl = resample_equal(torch.Generator().manual_seed(42), post, S)
+        write_equal_weights(
+            base + "_equal_weights.txt", equal_weights_matrix(_physical(fwd, su), logl)
+        )
 
 
 def _fleet_mesh(count: int, device) -> list:
@@ -719,11 +723,12 @@ def _run_seed_ensemble(configpars, model, fwd, cfg, seeds, resample_S, device, d
         batched = fit_stacked(spec, stacked, cfg, mesh=mesh, generators=gens)
         runs = [r.numpy() for r in unstack_results(batched)]
     if debug:
-        for s, res in zip(seeds, runs):
-            print(f"[DEBUG]: seed {s}: logZ = {float(res.logz):.3f}")
+        for s, res, g in zip(seeds, runs, gens):
+            print(f"[DEBUG]: seed {s}: logZ = {float(res.logz):.3f}{_row_counts(g, res, cfg)}")
     print("Execution time {}".format(datetime.datetime.now() - t0))
 
-    merged = merge_results(runs)
+    with phase_timer("runner.merge"):
+        merged = merge_results(runs)
     os.makedirs(configpars["chaindir"], exist_ok=True)
     base = chain_basename(configpars)
     stats_extra = []
@@ -758,6 +763,23 @@ def _run_seed_ensemble(configpars, model, fwd, cfg, seeds, resample_S, device, d
     _write_chain_files(base, fwd, merged, resample_S, stats_extra)
     print(f"Saved merged ensemble results to {base}_equal_weights.txt")
     return merged, base
+
+
+def _row_counts(gen, res, cfg) -> str:
+    """The ``--debug`` reading of the slice loop's row counters for the run
+    that drew from ``gen`` (counting is on under ``--debug``): proposals
+    per slice pass, and the share of the rows its likelihood calls
+    evaluated for chains that had no pass to make."""
+    from mcalf_torch.sampler.graph import generator_rows
+
+    got = generator_rows(gen)
+    if not got or not got[0] or not res.n_iter:
+        return ""
+    rows, active = got
+    cfg = cfg.resolved()
+    passes = int(res.n_iter) * cfg.num_repeats * cfg.num_delete
+    return (f"; {active / passes:.3f} proposals per slice pass, "
+            f"{100.0 * (1.0 - active / rows):.2f}% of {rows} rows masked")
 
 
 def _write_ncomp_table(path, rows) -> int:

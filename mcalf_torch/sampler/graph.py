@@ -27,7 +27,11 @@ read schedule is :func:`mcalf_torch.sampler.nested._block_loop`'s).
   every replay, so ``voigt_cuda.launches`` counts the launches the card
   ran.  :data:`stats` counts captures, replays, the iterations they ran,
   warm-up iterations and flag reads in this process, and the host seconds
-  spent warming up and capturing.
+  spent warming up and capturing (the ``sampler.capture`` phase span's
+  own duration); with the rows the slice loop evaluated, in every form
+  of the loop (eager, blocks, graph), and, while
+  :func:`mcalf_torch.utils.profiling.enable_counters` is on, those whose
+  chain had a pass to make (:func:`count_rows`).
 
 A likelihood that cannot be captured (one that reads the device, such as a
 ``.item()`` or a ``bool`` of a CUDA tensor) makes the capture raise, naming
@@ -37,26 +41,34 @@ the likelihood; nothing falls back to the eager loop.
 from __future__ import annotations
 
 import threading
-import time
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
-from mcalf_torch.utils.profiling import captured_launches
+from mcalf_torch.utils.profiling import captured_launches, phase_timer
 
-__all__ = ["BlockGraph", "count", "stats", "reset_stats"]
+__all__ = ["BlockGraph", "count", "count_rows", "generator_rows", "stats", "reset_stats"]
 
 #: what the captured slice loops of this process did: graphs captured,
 #: replays, slice iterations those replays ran, warm-up iterations, host
 #: reads of the loop's flags, and the host seconds the warm-ups and
-#: captures took
-stats = dict(captures=0, replays=0, iterations=0, warmups=0, reads=0, capture_s=0.0)
+#: captures took; and what every slice loop did: the rows its likelihood
+#: calls evaluated (``rows``) and, while counting is on, the rows whose
+#: chain had a pass to make (``rows_active``; the rest are masked)
+stats = dict(captures=0, replays=0, iterations=0, warmups=0, reads=0, capture_s=0.0,
+             rows=0, rows_active=0)
 _stats_lock = threading.Lock()
+#: while counting is on: id(generator) -> [generator, rows, rows_active] of
+#: the slice loops that drew from it, that is of one problem (a run's
+#: problem q draws from its own generator); held until :func:`reset_stats`
+#: (a CUDA generator takes no weak reference)
+_by_generator: dict = {}
 
 
 def reset_stats() -> None:
     for k in stats:
         stats[k] = 0
+    _by_generator.clear()
 
 
 def count(**added: int) -> None:
@@ -65,6 +77,28 @@ def count(**added: int) -> None:
     with _stats_lock:
         for k, n in added.items():
             stats[k] += n
+
+
+def count_rows(gens: Sequence[torch.Generator], rows: Sequence[int],
+               active: Optional[Sequence[int]]) -> None:
+    """Add one slice loop's rows to :data:`stats`: ``rows[q]`` evaluated
+    for problem q (drawing from ``gens[q]``), ``active[q]`` of them with a
+    pass to make (None while counting is off)."""
+    count(rows=sum(rows), rows_active=sum(active or ()))
+    if active is None:
+        return
+    with _stats_lock:
+        for g, r, a in zip(gens, rows, active):
+            tally = _by_generator.setdefault(id(g), [g, 0, 0])
+            tally[1] += r
+            tally[2] += a
+
+
+def generator_rows(gen: torch.Generator) -> Optional[tuple]:
+    """(rows, rows_active) of the slice loops that drew from ``gen`` while
+    counting was on, or None."""
+    tally = _by_generator.get(id(gen))
+    return None if tally is None else tuple(tally[1:])
 
 
 class BlockGraph:
@@ -85,7 +119,11 @@ class BlockGraph:
                 "the slice loop's captured draws need it"
             )
         self.iterations = iterations
-        t0 = time.perf_counter()
+        with phase_timer("sampler.capture") as span:
+            self._capture(block, warmup, gens, name)
+        count(captures=1, capture_s=span.seconds)
+
+    def _capture(self, block, warmup, gens, name) -> None:
         saved = [g.get_state() for g in gens]
         before = [g.get_offset() for g in gens]
         side = torch.cuda.Stream()
@@ -120,7 +158,6 @@ class BlockGraph:
                 "slice loop on a CUDA device runs only as replays of one): "
                 f"{type(failure).__name__}: {failure}"
             ) from failure
-        count(captures=1, capture_s=time.perf_counter() - t0)
 
     def replay(self) -> None:
         self.graph.replay()

@@ -54,6 +54,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mcalf_torch.sampler.graph import count_rows
+from mcalf_torch.utils.profiling import counters_enabled, phase_timer
+
 __all__ = [
     "NSConfig",
     "NSResults",
@@ -333,14 +336,15 @@ def _recluster(state: NSState, cfg: NSConfig) -> NSState:
         return state
     from mcalf_torch.sampler.clusters import assign_clusters
 
-    labels, _ = assign_clusters(
-        state.live_u.cpu().numpy(), max_clusters=cfg.max_clusters
-    )
-    return state._replace(
-        live_cluster=torch.as_tensor(
-            labels, dtype=torch.int64, device=state.live_u.device
+    with phase_timer("sampler.recluster"):
+        labels, _ = assign_clusters(
+            state.live_u.cpu().numpy(), max_clusters=cfg.max_clusters
         )
-    )
+        return state._replace(
+            live_cluster=torch.as_tensor(
+                labels, dtype=torch.int64, device=state.live_u.device
+            )
+        )
 
 
 def _remaining_logz(s: NSState, nlive: int) -> torch.Tensor:
@@ -634,6 +638,7 @@ class _Fixed(NamedTuple):
     rows: torch.Tensor      # (Q * B,) int32 problem index of each row
     r: torch.Tensor         # (Q, B) the iteration's uniform draws
     status: torch.Tensor    # (2, Q) int64: problem has a pass to make; n_like
+                            # (3, Q) while counting: and active rows
     arange_q: torch.Tensor  # (Q, 1)
     arange_b: torch.Tensor  # (1, B)
     nrep: int
@@ -644,6 +649,11 @@ class _Fixed(NamedTuple):
     u01: Optional[torch.Tensor] = None
     js: Optional[torch.Tensor] = None
     stepout: Optional[tuple] = None
+    #: while counting is on (:func:`mcalf_torch.utils.profiling.enable_counters`),
+    #: (Q, B) int64 iterations in which each chain had a pass to make since
+    #: the loop started (one add per iteration; the sum over a problem's
+    #: chains once per block); else None
+    active: Optional[torch.Tensor] = None
 
 
 def _fixed(loglike_rows, gens, pools, lstar, probs, cfg, so_pools=None) -> _Fixed:
@@ -657,14 +667,16 @@ def _fixed(loglike_rows, gens, pools, lstar, probs, cfg, so_pools=None) -> _Fixe
         m = int(cfg.stepout_budget)
         stepout = (float(cfg.stepout_w), m)
         cap = nrep * (int(cfg.max_shrink) + m + 2)
+    counting = counters_enabled()
     return _Fixed(
         loglike_rows, list(gens), pools, lstar.reshape(Q, 1),
         torch.tensor(probs, dtype=torch.int32, device=dev).repeat_interleave(B),
         torch.zeros((Q, B), dtype=torch.float32, device=dev),
-        torch.zeros((2, Q), dtype=torch.int64, device=dev),
+        torch.zeros((2 + counting, Q), dtype=torch.int64, device=dev),
         torch.arange(Q, device=dev)[:, None], torch.arange(B, device=dev)[None, :],
         nrep, cap, int(cfg.max_shrink),
         *((None, None) if stepout is None else so_pools), stepout,
+        torch.zeros((Q, B), dtype=torch.int64, device=dev) if counting else None,
     )
 
 
@@ -741,7 +753,8 @@ def _slice_step(c, x: _Fixed, live=None) -> None:
     ends first: a chain tests its low end, then its high end, then
     shrinks).  Where a problem has made all its passes, or the loop is past
     its cap, nothing moves: every phase's mask is false there, so the carry
-    and ``n_like`` keep their values.  ``live`` as in :func:`_slice_iter`."""
+    and ``n_like`` keep their values.  While counting, ``x.active`` counts
+    the chains with a pass to make.  ``live`` as in :func:`_slice_iter`."""
     Q, B = c.logl.shape
     dev = c.u.device
     so = x.stepout is not None
@@ -815,6 +828,8 @@ def _slice_step(c, x: _Fixed, live=None) -> None:
     c.passes.copy_(passes)
     c.n_like.add_(running.any(dim=1).to(torch.int64) * B)
     c.it_total.add_(1)
+    if x.active is not None:
+        x.active.add_(running)
 
 
 def _eager_loop(c: _Carry, x: _Fixed) -> None:
@@ -836,31 +851,37 @@ def _eager_loop(c: _Carry, x: _Fixed) -> None:
 
 def _block(c: _Carry, x: _Fixed, k: int) -> None:
     """k iterations of every chain, then the loop's status into
-    ``x.status``: whether each problem has a pass left to make, and its
-    evaluations."""
+    ``x.status``: whether each problem has a pass left to make, its
+    evaluations and, while counting, its active rows."""
     for _ in range(k):
         _slice_iter(c, x)
     x.status[0].copy_(((c.passes < x.nrep) & (c.it_total < x.total_cap)).any(dim=1))
     x.status[1].copy_(c.n_like)
+    if x.active is not None:
+        x.status[2].copy_(x.active.sum(dim=1))
 
 
-def _block_loop(x: _Fixed, k: int, run_block) -> List[int]:
+def _block_loop(x: _Fixed, k: int, run_block) -> tuple:
     """Blocks of k iterations until no problem has a pass to make: the
     first num_repeats // k blocks without a host read (a chain makes at
     most one pass per iteration, so none can be done sooner; with the
     step-out bracket too, whose pass ends only in its shrink phase, so
-    takes at least one iteration), then one read of the (2, Q) status
-    after each block.  Returns each problem's evaluations."""
+    takes at least one iteration), then one read of the status after each
+    block.  Returns the last status read (whether each problem runs, its
+    evaluations and, while counting, its active rows) and the blocks
+    run."""
     from mcalf_torch.sampler.graph import count
 
-    for _ in range(x.nrep // k):
+    blocks = x.nrep // k
+    for _ in range(blocks):
         run_block()
     while True:
         run_block()
-        running, n_like = x.status.tolist()
+        blocks += 1
+        status = x.status.tolist()
         count(reads=1)
-        if not any(running):
-            return n_like
+        if not any(status[0]):
+            return status, blocks
 
 
 class _SliceBlocks:
@@ -908,8 +929,14 @@ class _SliceBlocks:
                 x.gens, iterations=k,
                 name=getattr(x.loglike_rows, "__qualname__", repr(x.loglike_rows)),
             )
+        if x.active is not None:
+            x.active.zero_()  # after the warm-up, which counts into it
         saved = [g.get_state() for g in x.gens]
-        n_like = _block_loop(x, k, self.graph.replay if self.capture else lambda: _block(c, x, k))
+        with phase_timer("sampler.slice_loop"):
+            status, blocks = _block_loop(
+                x, k, self.graph.replay if self.capture else lambda: _block(c, x, k))
+        n_like = status[1]
+        count_rows(x.gens, [blocks * k * B] * Q, None if x.active is None else status[2])
         for q, g in enumerate(x.gens):
             g.set_state(saved[q])
             if self.capture:
@@ -962,10 +989,15 @@ def _slice_stacked(loglike_rows, gens, u_start, logl_start, pools, lstar, cfg, p
     if loop == "eager":
         x = _fixed(loglike_rows, gens, pools, lstar, probs, cfg, so_pools)
         c = _init_loop_carry(u_start, logl_start, x)
-        _eager_loop(c, x)
-        return c.u, c.logl, c.n_like.tolist()
+        with phase_timer("sampler.slice_loop"):
+            _eager_loop(c, x)
+        n_like = c.n_like.tolist()
+        # the eager loop evaluates a problem's rows in the iterations that
+        # its n_like counts
+        count_rows(gens, n_like, None if x.active is None else x.active.sum(dim=1).tolist())
+        return c.u, c.logl, n_like
     graphs = {} if graphs is None else graphs
-    key = (loop, tuple(probs), u_start.shape[1], u_start.shape[2])
+    key = (loop, tuple(probs), u_start.shape[1], u_start.shape[2], counters_enabled())
     if key not in graphs:
         graphs.clear()
         graphs[key] = _SliceBlocks(loglike_rows, gens, probs, pools, cfg,
@@ -1102,21 +1134,22 @@ def _steps(loglike_rows, states, gens, probs, cfg: NSConfig, cum_dlogx, loop=Non
     its own generator, their slice chains stacked, each problem's tail.
     Problem q's new state is the one its step alone would give.  ``loop``,
     ``graphs``: see :func:`_slice_stacked`."""
-    heads = [_head(s, cfg, g, cum_dlogx) for s, g in zip(states, gens)]
-    u_new, logl_new, n_evals = _slice_stacked(
-        loglike_rows, gens,
-        torch.stack([h.u_start for h in heads]),
-        torch.stack([h.logl_start for h in heads]),
-        torch.stack([h.pool for h in heads]),
-        torch.stack([h.lstar for h in heads]),
-        cfg, probs, loop=loop, graphs=graphs,
-        so_pools=None if heads[0].so_pool is None else tuple(
-            torch.stack(t) for t in zip(*(h.so_pool for h in heads))),
-    )
-    return [
-        _tail(s, h, u_new[i], logl_new[i], n_evals[i], cfg, g)
-        for i, (s, h, g) in enumerate(zip(states, heads, gens))
-    ]
+    with phase_timer("sampler.step"):
+        heads = [_head(s, cfg, g, cum_dlogx) for s, g in zip(states, gens)]
+        u_new, logl_new, n_evals = _slice_stacked(
+            loglike_rows, gens,
+            torch.stack([h.u_start for h in heads]),
+            torch.stack([h.logl_start for h in heads]),
+            torch.stack([h.pool for h in heads]),
+            torch.stack([h.lstar for h in heads]),
+            cfg, probs, loop=loop, graphs=graphs,
+            so_pools=None if heads[0].so_pool is None else tuple(
+                torch.stack(t) for t in zip(*(h.so_pool for h in heads))),
+        )
+        return [
+            _tail(s, h, u_new[i], logl_new[i], n_evals[i], cfg, g)
+            for i, (s, h, g) in enumerate(zip(states, heads, gens))
+        ]
 
 
 def _cum_dlogx(cfg: NSConfig, device) -> torch.Tensor:
@@ -1146,7 +1179,11 @@ def run_steps(
 def finalize(final: NSState, config: NSConfig) -> NSResults:
     """Fold the live set in (uniform weights X_final / nlive) and assemble
     :class:`NSResults` (tensors on the state's device)."""
-    cfg = config.resolved()
+    with phase_timer("sampler.finalize"):
+        return _finalize(final, config.resolved())
+
+
+def _finalize(final: NSState, cfg: NSConfig) -> NSResults:
     nlive, cap = cfg.nlive, int(cfg.max_samples)
     dev = final.live_u.device
     f32 = torch.float32
@@ -1323,20 +1360,27 @@ def nested_sample_stacked(
     left = [None] * Q  # outer steps left in each problem's chunk, None between chunks
     done = [False] * Q
     graphs = {}  # the run's captured slice loops
-    # The host touches a run only here, between chunks.
+    ended = []  # problems whose chunks the last outer step ended
+    # The host touches a run only here, between outer steps.
     while True:
-        for q in range(Q):
-            if left[q] is None and not done[q]:
-                if is_done(states[q], cfg):
-                    done[q] = True
-                    continue
-                states[q] = _recluster(states[q], cfg)
-                left[q] = _PROBE_STEPS if first[q] else chunk
-                first[q] = False
-        inside = [q for q in range(Q) if left[q] is not None]
+        with phase_timer("sampler.boundary"):
+            for q in ended:
+                states[q] = states[q]._replace(rng=gens[q].get_state())
+                left[q] = None
+            if on_chunk is not None and ended and all(x is None for x in left):
+                on_chunk(list(states))
+            for q in range(Q):
+                if left[q] is None and not done[q]:
+                    if is_done(states[q], cfg):
+                        done[q] = True
+                        continue
+                    states[q] = _recluster(states[q], cfg)
+                    left[q] = _PROBE_STEPS if first[q] else chunk
+                    first[q] = False
+            inside = [q for q in range(Q) if left[q] is not None]
+            stepping = [q for q in inside if left[q] > 0 and _not_done(states[q], cfg)]
         if not inside:
             break
-        stepping = [q for q in inside if left[q] > 0 and _not_done(states[q], cfg)]
         if stepping:
             new = _steps(loglike_rows, [states[q] for q in stepping],
                          [gens[q] for q in stepping], stepping, cfg, cum_dlogx,
@@ -1345,11 +1389,6 @@ def nested_sample_stacked(
                 states[q] = s
                 left[q] -= 1
         ended = [q for q in inside if q not in stepping or left[q] == 0]
-        for q in ended:  # these problems' chunks end
-            states[q] = states[q]._replace(rng=gens[q].get_state())
-            left[q] = None
-        if on_chunk is not None and ended and all(x is None for x in left):
-            on_chunk(list(states))
     return states
 
 
@@ -1357,10 +1396,11 @@ def _initial_states(loglike_rows, gens, cfg: NSConfig, device) -> List[NSState]:
     """Each problem's :func:`init_state`, its live set drawn from its own
     generator, all the live sets' likelihoods in one call."""
     Q = len(gens)
-    live_u = [_draw_live(g, cfg, device) for g in gens]
-    rows = torch.arange(Q, dtype=torch.int32, device=device).repeat_interleave(cfg.nlive)
-    live_logl = loglike_rows(torch.cat(live_u), rows).reshape(Q, cfg.nlive)
-    return [_fresh_state(u, l, cfg) for u, l in zip(live_u, live_logl)]
+    with phase_timer("sampler.init"):
+        live_u = [_draw_live(g, cfg, device) for g in gens]
+        rows = torch.arange(Q, dtype=torch.int32, device=device).repeat_interleave(cfg.nlive)
+        live_logl = loglike_rows(torch.cat(live_u), rows).reshape(Q, cfg.nlive)
+        return [_fresh_state(u, l, cfg) for u, l in zip(live_u, live_logl)]
 
 
 def nested_sample_device(

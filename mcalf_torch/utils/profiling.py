@@ -1,7 +1,14 @@
 """Profiling and tracing hooks; port of :mod:`mcalf_tpu.utils.profiling`.
 
 * :func:`phase_timer` -- context manager recording named phase durations in a
-  process-global registry (queryable via :func:`get_timings`).
+  process-global registry (queryable via :func:`get_timings`).  While the
+  torch profiler records, the phase is also a ``record_function`` span, so
+  it appears in a Chrome trace as a ``user_annotation`` on the clock of the
+  device's kernels.
+* :func:`enable_counters` -- the switch of the slice loop's device-side
+  counter of the rows whose chain had a pass to make
+  (``sampler.graph.stats['rows_active']``); off by default, when the loop
+  issues no op for it.
 * :func:`trace` -- context manager wrapping ``torch.profiler`` when a trace
   directory is configured (MCALF_TORCH_TRACE_DIR env var or argument),
   writing a Chrome trace (``*.pt.trace.json``, which TensorBoard's and
@@ -25,15 +32,34 @@ from collections import defaultdict
 from typing import Callable, Dict, List
 
 _TIMINGS: Dict[str, List[float]] = defaultdict(list)
+#: whether the slice loop counts its active rows on the device
+_counting = False
+
+
+class Span:
+    """What :func:`phase_timer` yields: ``seconds`` holds the phase's
+    duration, as the registry records it, once the block has ended."""
+
+    __slots__ = ("seconds",)
+
+    def __init__(self):
+        self.seconds = 0.0
 
 
 @contextlib.contextmanager
 def phase_timer(name: str):
+    import torch
+
+    span = Span()
+    annotate = (torch.profiler.record_function(name) if torch.autograd._profiler_enabled()
+                else contextlib.nullcontext())
     t0 = time.perf_counter()
     try:
-        yield
+        with annotate:
+            yield span
     finally:
-        _TIMINGS[name].append(time.perf_counter() - t0)
+        span.seconds = time.perf_counter() - t0
+        _TIMINGS[name].append(span.seconds)
 
 
 def get_timings() -> Dict[str, List[float]]:
@@ -42,6 +68,19 @@ def get_timings() -> Dict[str, List[float]]:
 
 def reset_timings() -> None:
     _TIMINGS.clear()
+
+
+def enable_counters(on: bool = True) -> bool:
+    """Switch the slice loop's active-row counter on or off for the loops
+    that start from now on; returns the previous setting.  A run's captured
+    graph is captured again when the setting changes."""
+    global _counting
+    was, _counting = _counting, bool(on)
+    return was
+
+
+def counters_enabled() -> bool:
+    return _counting
 
 
 @contextlib.contextmanager

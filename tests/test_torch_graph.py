@@ -171,13 +171,14 @@ def test_no_read_before_num_repeats_iterations(k):
         tn._block(c, x, k)
 
     start = stats["reads"]
-    n = tn._block_loop(x, k, run_block)
+    status, blocks = tn._block_loop(x, k, run_block)
     reads = [r - start for r in reads]
     quiet = R // k
     assert reads[: quiet + 1] == [0] * (quiet + 1)
     assert reads[quiet + 1:] == list(range(1, len(reads) - quiet))
     assert stats["reads"] - start == len(reads) - quiet
-    assert n == c.n_like.tolist() and not any(x.status[0].tolist())
+    assert status == x.status.tolist() and blocks == len(reads)
+    assert status[1] == c.n_like.tolist() and not any(status[0])
 
 
 def test_loop_choice():

@@ -17,7 +17,11 @@ CUDA device.  No jax here, so on a machine with a card:
 * fused-kernel launches counted by replay equal the fused kernel's runs
   in a profiler trace; evaluations come from the device counter;
 * a likelihood that reads the device cannot be captured: the capture
-  raises, naming it.
+  raises, naming it;
+* with counting on, the captured loop counts the active rows the blocks
+  loop counts, and moves no bit; its ``sampler.capture`` span is the
+  capture seconds ``graph.stats`` adds; with counting off a replay runs
+  the kernels it ran before the counters existed.
 """
 
 import json
@@ -266,3 +270,122 @@ def test_fit_after_warmup_builds_nothing(cuda, conv_mode):
     res = nested_sample(loglike, gen, cfg, cuda)
     assert torch.isfinite(res.logz)
     assert [f.cache_info().misses for f in caches] == warm
+
+
+def _fleet_rows(cuda, loop, counting):
+    """Three stacked Gaussians, one captured (or blocks) fleet: results,
+    generator states, and the row counters' and capture's increments."""
+    from mcalf_torch.sampler import finalize
+    from mcalf_torch.utils import profiling
+
+    mus = torch.tensor([[0.3] * 4, [0.5] * 4, [0.6] * 4], device=cuda)
+
+    def rows(u, prob):
+        return -0.5 * torch.sum(((u - mus[prob.long()]) / 0.05) ** 2, dim=-1)
+
+    cfg = NSConfig(ndim=4, nlive=40, num_repeats=8, max_samples=1200)
+    gens = [torch.Generator(device=cuda).manual_seed(s) for s in (1, 2, 3)]
+    was = profiling.enable_counters(counting)
+    before, spans = dict(graph.stats), len(profiling.get_timings().get("sampler.capture", []))
+    try:
+        finals = tn.nested_sample_stacked(rows, gens, cfg, cuda, _loop=loop)
+    finally:
+        profiling.enable_counters(was)
+    added = {k: graph.stats[k] - before[k] for k in ("rows", "rows_active", "capture_s")}
+    added["capture_span_s"] = sum(profiling.get_timings().get("sampler.capture", [])[spans:])
+    return ([finalize(f, cfg) for f in finals], [g.get_state() for g in gens], added,
+            [graph.generator_rows(g) for g in gens])
+
+
+def test_captured_counts_the_rows_of_the_blocks_loop(cuda):
+    off, _, off_added, _ = _fleet_rows(cuda, None, False)
+    (cap, cap_gens, cap_added, cap_rows), (blk, blk_gens, blk_added, blk_rows) = (
+        _fleet_rows(cuda, None, True), _fleet_rows(cuda, "blocks", True))
+    assert len({r.n_iter for r in cap}) > 1  # the members leave at different steps
+    for a, b, c in zip(off, cap, blk):
+        assert float(a.logz) == float(b.logz) == float(c.logz)
+        assert a.n_like == b.n_like == c.n_like
+        assert torch.equal(a.samples_u, b.samples_u) and torch.equal(b.samples_u, c.samples_u)
+    assert all(torch.equal(a, b) for a, b in zip(cap_gens, blk_gens))
+    assert cap_added["rows_active"] == blk_added["rows_active"] > 0
+    assert off_added["rows"] == cap_added["rows"] == blk_added["rows"]
+    assert off_added["rows_active"] == 0 and cap_rows == blk_rows
+    assert 0 < cap_added["rows_active"] < cap_added["rows"]
+    # the capture span is the capture seconds graph.stats adds
+    assert cap_added["capture_s"] == pytest.approx(cap_added["capture_span_s"], rel=1e-9)
+    assert cap_added["capture_s"] > 0
+    assert blk_added["capture_s"] == blk_added["capture_span_s"] == 0
+
+
+def _replay_kernels(cuda, tmp_path, counting=False):
+    """The device operations (kernels, copies, sets) that one replay of a
+    two-problem captured block of the Gaussian fleet runs, from a trace."""
+    from mcalf_torch.utils import profiling
+
+    cfg = NSConfig(ndim=4, nlive=40, num_repeats=8).resolved()
+    Q, B = 2, cfg.num_delete
+    mus = torch.tensor([[0.3] * 4, [0.6] * 4], device=cuda)
+
+    def rows(u, prob):
+        return -0.5 * torch.sum(((u - mus[prob.long()]) / 0.05) ** 2, dim=-1)
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    u = mus[:, None, :] + 0.01 * torch.rand((Q, B, 4), generator=gen, device=cuda)
+    logl = rows(u.reshape(Q * B, 4), torch.arange(Q, device=cuda).repeat_interleave(B))
+    d = torch.randn((Q, cfg.num_repeats, B, 4), generator=gen, device=cuda)
+    pools = 0.3 * d / d.norm(dim=-1, keepdim=True)
+    lstar = logl.reshape(Q, B).min(dim=1).values - 1.0
+    gens = [torch.Generator(device=cuda).manual_seed(s) for s in (1, 2)]
+    was = profiling.enable_counters(counting) if counting else None
+    try:
+        blocks = tn._SliceBlocks(rows, gens, [0, 1], pools, cfg, tn.BLOCK_ITERATIONS,
+                                 capture=True)
+        blocks.run(u, logl.reshape(Q, B), pools, lstar)
+    finally:
+        if counting:
+            profiling.enable_counters(was)
+    torch.cuda.synchronize()
+    with trace(str(tmp_path)):
+        blocks.graph.replay()
+        torch.cuda.synchronize()
+    [path] = tmp_path.glob("*.json")
+    return sum(1 for e in json.loads(path.read_text())["traceEvents"]
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+#: what one replay of ``_replay_kernels``' block ran before the counters
+#: existed (this function on that tree, on an H100)
+PARENT_REPLAY_KERNELS = 1274
+
+
+@pytest.fixture(scope="module")
+def replay_kernels(cuda, tmp_path_factory):
+    """``_replay_kernels`` counting off, then on, in a process of its own:
+    after other traces in a process the profiler has lost device records
+    (1,271 in place of 1,274)."""
+    tmp = tmp_path_factory.mktemp("replay")
+    code = textwrap.dedent(f"""
+        import sys
+        from pathlib import Path
+        import torch
+        sys.path.insert(0, {str(REPO / "tests")!r})
+        import test_torch_graph_gpu as t
+        cuda, tmp = torch.device("cuda"), Path({str(tmp)!r})
+        print("COUNTS", t._replay_kernels(cuda, tmp / "off"),
+              t._replay_kernels(cuda, tmp / "on", True))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), capture_output=True,
+                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    [line] = [ln for ln in proc.stdout.splitlines() if ln.startswith("COUNTS ")]
+    return tuple(int(n) for n in line.split()[1:])
+
+
+def test_counting_off_replay_runs_the_kernels_it_did_before(replay_kernels):
+    assert replay_kernels[0] == PARENT_REPLAY_KERNELS
+
+
+def test_counting_on_replay_adds_one_kernel_per_iteration(replay_kernels):
+    # per iteration the add of the running mask; once per block the sum
+    # over each problem's chains and its copy into the status
+    assert replay_kernels[1] == replay_kernels[0] + tn.BLOCK_ITERATIONS + 2
