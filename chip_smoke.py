@@ -8,8 +8,10 @@ Phases, each printing lines tagged with its number:
    name and power limit as nvidia-smi gives them;
 2. build: compiles both kernels (csrc/fused_loglike.cu, csrc/voigt_tau.cu)
    with one nvcc call and prints ptxas's registers and spills per kernel
-   instantiation (each kernel's Harris-only and damped one), and the fused
-   kernel's two beside their 48 and 80 registers before the problem axis;
+   instantiation (each kernel's Harris-only and damped one, the fused
+   kernel's each from (B, T) tables and from the unit cube) and of the
+   functions they call out of line, and the fused kernel's beside their
+   48 and 80 registers before the problem axis;
 3. fused kernel vs plain, the same inputs at full width, B in {100, 37, 1},
    a prior-spread and a z-clustered batch, log L to rtol 1e-5 / atol 0.05
    with the -inf pattern exact (the JAX package's fused-vs-XLA tolerance):
@@ -26,7 +28,12 @@ Phases, each printing lines tagged with its number:
    shorter fit range padded to its 1999 pixels; the same for the asymmlike
    model), their rows interleaved, B in {100, 37, 1} per problem, against
    the plain version at the reference tolerance and every stacked row bit
-   for bit the single-problem launch's;
+   for bit the single-problem launch's.  Beside each launch from (B, T)
+   tables, the sampler's launch (``voigt_cuda.fused_loglike_cube``: the
+   same rows as unit-cube points) against its plain twin at the same
+   tolerance with the -inf pattern exact, and its log L bit for bit the
+   table entry's through the glue; then the fleet's shape, 8 x 100 stacked
+   flagship rows, the same three ways;
 4. tau kernel vs plain on the flagship, the narrow flagship and the mixed
    model, B in {100, 200, 13, 1000}: |dtau| / (|tau| + 1e-3) < 3e-5 (the
    JAX package's tau bar), the Harris-only instantiation picked for the
@@ -47,7 +54,10 @@ Phases, each printing lines tagged with its number:
    and plain in turns (plain, kernel, kernel, plain).  Once, on the
    flagship at B=100, torch.profiler's kernel time cross-checks the graph
    method; one stacked launch of 4 x 100 flagship rows against four B=100
-   launches, device and call time.  Prints the fused kernel's cluster and tile geometry and its
+   launches, device and call time; the unit-cube entry beside the table
+   entry at each fused timing (device, call and plain time, the bound of
+   the same rows), and at 8 x 100 stacked flagship rows against the table
+   entry alone and with its glue.  Prints the fused kernel's cluster and tile geometry and its
    resident CTAs per SM and clusters per card, and the tau kernel's sample
    groups, tiles and resident CTAs per SM at each batch (the CUDA occupancy
    API);
@@ -159,7 +169,8 @@ beside the branch-aware bound.
 Then one JSON line with the kernels' launch counts, errors, device and
 call times and bounds (at the narrow flagship, B=100; the tau kernel's at
 every timed model and batch under ``by_batch``; the stacked launch under
-``stacked``; mode 0 under ``mode0``), and as the last
+``stacked``; mode 0 under ``mode0``; the unit-cube entry under ``cube``),
+and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises.  The port
 must not import jax or mcalf_tpu: checked at the end.
 """
@@ -260,16 +271,19 @@ def phase_build() -> dict:
 def ptxas_counts(log: str):
     """(function, line) for ptxas's register and spill lines: each kernel's
     Harris-only and damped instantiation (the tau kernel's each with and
-    without the problem axis), and the device function they call."""
+    without the problem axis, the fused kernel's each from tables and from
+    the unit cube), and the device functions they call out of line."""
     name = "?"
     for ln in log.splitlines():
         if "entry function" in ln or "Function properties for" in ln:
             m = re.search(r"(voigt_tau_kernel|fused_loglike_kernel)ILb([01])E(?:Lb([01])E)?", ln)
             if m:
                 name = (f"{m[1]}<{'damped' if m[2] == '1' else 'harris'}"
-                        f"{', prob' if m[3] == '1' else ''}>")
+                        f"{(', cube' if m[1].startswith('fused') else ', prob') if m[3] == '1' else ''}>")
             elif "wofz_real_916" in ln:
                 name = "wofz_real_916"
+            elif "free_taps" in ln:
+                name = "free_taps"
         elif "registers" in ln or "spill" in ln:
             yield name, ln.strip().removeprefix("ptxas info    : ")
 
@@ -320,14 +334,45 @@ def _kernel_and_plain(fwd, u):
     return k, q, tm.loglike_from_fused(p, c, s, *k), tm.loglike_from_fused(p, c, s, *q)
 
 
-def phase_kernel_check() -> float:
-    from mcalf_torch.models import make_torch_forward
+def _check_cube(tag: str, u, prob, tables, s, table_ll) -> float:
+    """The sampler's launch on unit-cube rows ``u`` against its plain twin
+    on the same inputs (rtol 1e-5 / atol 0.05, the -inf pattern exact) and
+    bit for bit ``table_ll``, the table entry's log L of the same rows
+    through the glue.  Returns the largest |dlogL| against the twin."""
+    from mcalf_torch.ops import voigt_cuda
 
-    worst = 0.0
+    kw = dict(half=s.half, asymm=s.asymmlike)
+    before = voigt_cuda.cube_launches
+    got = voigt_cuda.fused_loglike_cube(u, prob, tables, **kw)
+    plain = voigt_cuda.fused_loglike_cube_plain(u, prob, tables, **kw)
+    torch.cuda.synchronize()
+    if voigt_cuda.cube_launches != before + 1:
+        raise AssertionError(f"{tag}: {voigt_cuda.cube_launches - before} cube launches")
+    if not torch.equal(got, table_ll):
+        raise AssertionError(f"{tag}: cube log L differs from the table entry's in "
+                             f"{int((got != table_ll).sum())} of {got.numel()} rows")
+    lc, lp = got.double().cpu().numpy(), plain.double().cpu().numpy()
+    if not np.array_equal(np.isfinite(lc), np.isfinite(lp)):
+        raise AssertionError(f"{tag}: cube -inf pattern differs from plain")
+    fin = np.isfinite(lc)
+    err = float(np.max(np.abs(lc[fin] - lp[fin]), initial=0.0))
+    if not np.allclose(lc[fin], lp[fin], rtol=1e-5, atol=0.05):
+        raise AssertionError(f"{tag}: cube max |dlogL| vs plain = {err}")
+    return err
+
+
+def phase_kernel_check() -> tuple:
+    """Returns the largest |dlogL| of the table entry and of the cube
+    entry against their plain versions."""
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.models import torch_model as tm
+
+    worst = worst_cube = 0.0
     for name in ("flagship", "asymmlike", "narrow", "mixed"):
         model = _model(name)
         fwd = make_torch_forward(model, "cuda")
         s = fwd.static
+        tables = tm.cube_tables(fwd.consts(), s)
         modes = sorted(set(fwd.modes.tolist()))
         if modes != {"flagship": [1], "asymmlike": [1], "narrow": [2],
                      "mixed": [1, 2]}[name]:
@@ -337,6 +382,8 @@ def phase_kernel_check() -> float:
                 u = _batch(s.ndim, B, clustered, seed=B + 7 * clustered,
                            layout=model.canon_layout())
                 k, q, lk, lp = _kernel_and_plain(fwd, u)
+                cube_err = _check_cube(f"{name} B={B}", u, None, tables, s, lk)
+                worst_cube = max(worst_cube, cube_err)
                 torch.cuda.synchronize()
                 ck = k[0].double().cpu().numpy()
                 cq = q[0].double().cpu().numpy()
@@ -357,12 +404,16 @@ def phase_kernel_check() -> float:
                     f"[3 kernel] {name} T={s.ntrans} P={s.npix} K={2 * s.half + 1} "
                     f"modes {modes} B={B} "
                     f"{'z-clustered' if clustered else 'spread'}: "
-                    f"max |dlogL| {err:.3g}, finite {int(fin.sum())}/{B}"
+                    f"max |dlogL| {err:.3g}, finite {int(fin.sum())}/{B}; cube entry: "
+                    f"max |dlogL| vs plain {cube_err:.3g}, bit for bit the table entry's"
                 )
-    return worst
+    return worst, worst_cube
 
 
 RAGGED_P = (1, 23, 255, 257, 2049, 5000)
+#: the seeds of the flagship fleet whose stacked rows phases 3 and 5 check
+#: and time (the benchmark's civ-flagship.seeds8)
+FLEET_Q = 8
 LONG_P = 65536  # over the shared-memory limit of one CTA per sample
 BIG_B = 65537  # over CUDA's grid-dimension limit of 65,535 blocks
 
@@ -472,18 +523,21 @@ def _stacked_args(sf, u, prob):
     return p, c, tm.fused_args(p, c, sf.static, dz=dz, prob=prob)
 
 
-def phase_stacked_check() -> float:
+def phase_stacked_check() -> tuple:
     """The kernel's problem axis: two problems' rows interleaved in one
     launch, against the plain version at the reference tolerance, and each
-    row bit for bit the single-problem launch's.  Returns the largest
-    |dlogL|."""
+    row bit for bit the single-problem launch's; the cube entry on the same
+    rows (:func:`_check_cube`); then the fleet's 8 x 100 flagship rows.
+    Returns the largest |dlogL| of the table entry and of the cube entry."""
     from mcalf_torch.models import torch_model as tm
+    from mcalf_torch.models.batched import stack_problems
     from mcalf_torch.ops import voigt_cuda
 
-    worst = 0.0
+    worst = worst_cube = 0.0
     for name in ("flagship", "asymmlike"):
         sf, solo = _stacked_pair(name)
         s = sf.static
+        tables = tm.cube_tables(sf.consts(), s)
         for B in (100, 37, 1):
             u = _batch(s.ndim, 2 * B, False, seed=50 + B, layout=None)
             prob = torch.arange(2 * B, device="cuda", dtype=torch.int32) % 2
@@ -491,7 +545,10 @@ def phase_stacked_check() -> float:
             kw = dict(half=s.half, asymm=s.asymmlike, prob=prob)
             k = voigt_cuda.fused_loglike(*args, **kw)
             q = voigt_cuda.fused_loglike_plain(*args, **kw)
-            lk = tm.loglike_from_fused(p, c, s, *k).double().cpu().numpy()
+            lk = tm.loglike_from_fused(p, c, s, *k)
+            cube_err = _check_cube(f"stacked {name} B={B}", u, prob, tables, s, lk)
+            worst_cube = max(worst_cube, cube_err)
+            lk = lk.double().cpu().numpy()
             lp = tm.loglike_from_fused(p, c, s, *q).double().cpu().numpy()
             torch.cuda.synchronize()
             if not np.array_equal(np.isfinite(lk), np.isfinite(lp)):
@@ -514,8 +571,23 @@ def phase_stacked_check() -> float:
             print(f"[3 stacked] {name} + {name}_short padded, T={s.ntrans} P={s.npix}, "
                   f"2 x {B} rows interleaved in one launch: max |dlogL| vs plain {err:.3g}, "
                   f"finite {int(fin.sum())}/{2 * B}, every row bit for bit the "
-                  "single-problem launch's")
-    return worst
+                  f"single-problem launch's; cube entry: max |dlogL| vs plain {cube_err:.3g}, "
+                  "bit for bit the table entry's")
+    # the fleet's shape: 8 seeds of the flagship, 100 rows each, in one launch
+    spec, stacked = stack_problems([_model("flagship")] * FLEET_Q)
+    sf = tm.make_stacked_forward(spec, stacked, "cuda")
+    u = _batch(spec.ndim, FLEET_Q * 100, False, seed=800, layout=None)
+    prob = torch.arange(FLEET_Q, device="cuda", dtype=torch.int32).repeat_interleave(100)
+    p, c, args = _stacked_args(sf, u, prob)
+    lk = tm.loglike_from_fused(
+        p, c, spec, *voigt_cuda.fused_loglike(*args, half=spec.half, asymm=spec.asymmlike,
+                                              prob=prob))
+    err = _check_cube(f"stacked flagship {FLEET_Q} x 100", u, prob,
+                      tm.cube_tables(sf.consts(), spec), spec, lk)
+    worst_cube = max(worst_cube, err)
+    print(f"[3 stacked] flagship {FLEET_Q} x 100 rows (the fleet's launch): cube entry max "
+          f"|dlogL| vs plain {err:.3g}, bit for bit the table entry's")
+    return worst, worst_cube
 
 
 def phase_tau_check() -> float:
@@ -737,12 +809,14 @@ def _census(args, fused: bool, half: int = 0) -> int:
 
 def phase_timing(smi: str) -> dict:
     from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.models import torch_model as tm
     from mcalf_torch.ops import voigt_cuda
 
     out = {}
     for name in ("flagship", "narrow"):
         fwd = make_torch_forward(_model(name), "cuda")
         s = fwd.static
+        tables = tm.cube_tables(fwd.consts(), s)
         g = voigt_cuda.fused_geometry(s.ntrans, s.npix, s.half)
         damped = voigt_cuda.MODE_HJERT in fwd.modes.tolist()
         ctas_per_sm, clusters = voigt_cuda.fused_occupancy(s.ntrans, s.npix, s.half, damped)
@@ -773,6 +847,14 @@ def phase_timing(smi: str) -> dict:
             tk = [_device_ms(tau), _device_ms(tau)]
             tc = _median_ms(tau)
             tp.append(_median_ms(tau_plain, reps=10))
+            # the sampler's launch on the same rows as unit-cube points
+            ckw = dict(half=s.half, asymm=s.asymmlike)
+            cube = lambda: voigt_cuda.fused_loglike_cube(u, None, tables, **ckw)
+            cube_plain = lambda: voigt_cuda.fused_loglike_cube_plain(u, None, tables, **ckw)
+            cp = [_median_ms(cube_plain, reps=5)]
+            ck = [_device_ms(cube), _device_ms(cube)]
+            cc = _median_ms(cube)
+            cp.append(_median_ms(cube_plain, reps=5))
             ms_cube = _median_ms(lambda: fwd.loglike_cube(u))
             ms_rec = _median_ms(lambda: fwd.reconstruct(p))
             fb, fby = _bound(args, True, s.half)
@@ -780,6 +862,7 @@ def phase_timing(smi: str) -> dict:
             rec = dict(
                 fused=(float(np.mean(fk)), fc, float(np.mean(fp)), fb, fby),
                 tau=(float(np.mean(tk)), tc, float(np.mean(tp)), tb, tby),
+                cube=(float(np.mean(ck)), cc, float(np.mean(cp)), fb, fby),
             )
             out[name, B] = rec
             print(
@@ -789,6 +872,12 @@ def phase_timing(smi: str) -> dict:
                 f"voigt_tau device {tk[0]:.4f}/{tk[1]:.4f} ms, call {tc:.4f} ms, plain "
                 f"{tp[0]:.2f}/{tp[1]:.2f} ms, bound {tb:.4f} ms ({tby}); loglike_cube "
                 f"{ms_cube:.4f} ms/call, reconstruct {ms_rec:.4f} ms/call  [{smi}]"
+            )
+            print(
+                f"[5 timing] {name} B={B}: cube entry device {ck[0]:.4f}/{ck[1]:.4f} ms "
+                f"(table entry {fk[0]:.4f}/{fk[1]:.4f}), call {cc:.4f} ms (table {fc:.4f}), "
+                f"plain {cp[0]:.2f}/{cp[1]:.2f} ms, bound of the same rows {fb:.4f} ms "
+                f"({fby})  [{smi}]"
             )
             if B == 100:
                 t0 = time.perf_counter()
@@ -836,6 +925,7 @@ def phase_timing(smi: str) -> dict:
                 f"{ctas} CTAs ({ctas * g.threads // 32} warps) resident per SM"
             )
     out["stacked"] = _time_stacked(smi)
+    out["fleet_cube"] = _time_fleet_cube(smi)
     return out
 
 
@@ -874,6 +964,68 @@ def _time_stacked(smi: str) -> dict:
         f"{plain_ms:.2f} ms; bound {bound:.4f} ms ({by})  [{smi}]"
     )
     return rec
+
+
+def _time_fleet_cube(smi: str) -> dict:
+    """The fleet's launch, 8 x 100 stacked flagship rows: the cube entry
+    (the sampler's whole likelihood call) against the table entry alone and
+    with the glue that makes its tables (the call before the cube entry), in
+    turns; the bound of the same rows."""
+    from mcalf_torch.models import torch_model as tm
+    from mcalf_torch.models.batched import stack_problems
+    from mcalf_torch.ops import voigt_cuda
+
+    spec, stacked = stack_problems([_model("flagship")] * FLEET_Q)
+    sf = tm.make_stacked_forward(spec, stacked, "cuda")
+    u = _batch(spec.ndim, FLEET_Q * 100, False, seed=801, layout=None)
+    prob = torch.arange(FLEET_Q, device="cuda", dtype=torch.int32).repeat_interleave(100)
+    tables = tm.cube_tables(sf.consts(), spec)
+    args = _stacked_args(sf, u, prob)[2]
+    kw = dict(half=spec.half, asymm=spec.asymmlike)
+
+    def with_glue():
+        p, c, a = _stacked_args(sf, u, prob)
+        return tm.loglike_from_fused(p, c, spec, *voigt_cuda.fused_loglike(*a, **kw, prob=prob))
+
+    fns = dict(cube=lambda: voigt_cuda.fused_loglike_cube(u, prob, tables, **kw),
+               table=lambda: voigt_cuda.fused_loglike(*args, **kw, prob=prob),
+               table_with_glue=with_glue)
+    order = ("table_with_glue", "cube", "table", "table", "cube", "table_with_glue")
+    dev, call = collections.defaultdict(list), collections.defaultdict(list)
+    for k in order:
+        dev[k].append(_device_ms(fns[k]))
+    for k in order:
+        call[k].append(_median_ms(fns[k]))
+    plain_ms = _median_ms(lambda: voigt_cuda.fused_loglike_cube_plain(u, prob, tables, **kw),
+                          reps=5)
+    bound, by = _bound(args, True, spec.half, prob=prob)
+    rec = dict(rows=FLEET_Q * 100, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    for k in fns:
+        rec[f"{k}_ms"] = float(np.mean(dev[k]))
+        rec[f"{k}_call_ms"] = float(np.mean(call[k]))
+    print(
+        f"[5 timing] stacked flagship {FLEET_Q} x 100 rows (the fleet's launch): device "
+        + ", ".join(f"{k} {'/'.join(f'{v:.4f}' for v in dev[k])} ms" for k in fns)
+        + "; call " + ", ".join(f"{k} {'/'.join(f'{v:.4f}' for v in call[k])} ms" for k in fns)
+        + f"; cube plain {plain_ms:.2f} ms; bound {bound:.4f} ms ({by})  [{smi}]"
+    )
+    return rec
+
+
+def _cube_entry(timing: dict, worst: float, worst_stacked: float) -> dict:
+    """The ``kernels`` line's record of the unit-cube entry, in the table
+    entry's terms: device, call and plain ms and the bound of the same rows
+    at the narrow flagship B=100 (each timed model and batch under
+    ``by_batch``), the errors against its plain twin, and the fleet's
+    8 x 100-row launch."""
+    names = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+    return dict(
+        zip(names, timing["narrow", 100]["cube"]),
+        max_abs_err=worst, max_abs_err_stacked=worst_stacked,
+        by_batch={f"{m} B={B}": dict(zip(names, timing[m, B]["cube"]))
+                  for m in ("flagship", "narrow") for B in (100, 200)},
+        stacked=timing["fleet_cube"],
+    )
 
 
 def _write_cfg(path: Path, outdir: Path, brange=None, run="",
@@ -2731,7 +2883,7 @@ def phase_warmup(tmp: Path, smi: str, flagship: dict) -> dict:
     from mcalf_torch.sampler import graph, warmup_executables
 
     _, model, _, cfg, device = _flagship_setup(tmp / "warmup")
-    caches = (_build.load, voigt_cuda._fused_fn, voigt_cuda._tau_fn,
+    caches = (_build.load, voigt_cuda._fused_fn, voigt_cuda._fused_cube_fn, voigt_cuda._tau_fn,
               voigt_cuda.fused_geometry, voigt_cuda.tau_geometry)
     for f in caches:
         f.cache_clear()
@@ -2859,9 +3011,9 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     regs = phase_build()
-    worst = phase_kernel_check()
+    worst, worst_cube = phase_kernel_check()
     worst_ragged = phase_ragged_check()
-    worst_stacked = phase_stacked_check()
+    worst_stacked, worst_cube_stacked = phase_stacked_check()
     worst_tau = phase_tau_check()
     timing = phase_timing(smi)
     tmp = ROOT / "build" / "chip_smoke"  # git-ignored
@@ -2962,6 +3114,8 @@ def main() -> int:
             "library_ms": None,
             "at": at,
             "registers": regs,
+            # the sampler's launch from unit-cube rows (phases 3 and 5)
+            "cube": _cube_entry(timing, worst_cube, worst_cube_stacked),
             # one launch of 4 x 100 flagship rows against four B=100 launches
             "stacked": timing["stacked"],
             "fleet_evals_per_s": fleet["rate"],
@@ -3007,7 +3161,7 @@ def main() -> int:
             "at": at,
             # device ms (mean of two), call ms and bound ms per model and batch
             "by_batch": {f"{k[0]} B={k[1]}": [round(v, 5) for v in (r["tau"][0], r["tau"][1], r["tau"][3])]
-                         for k, r in timing.items() if k != "stacked"},
+                         for k, r in timing.items() if isinstance(k, tuple)},
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,9 @@ writes the chain files and plots, and each process reports its wall and
 fused-kernel launches in one line on its stderr.  ``--debug`` also turns
 the slice loop's row counters on (:func:`mcalf_torch.utils.profiling.enable_counters`)
 and prints, per seed, the proposals per slice pass and the share of the
-evaluated rows that were masked, and the seconds of each phase span of the
-fit, one line per name.  Plotting
+evaluated rows that were masked, the seconds of each phase span of the
+fit, one line per name, and the fit's fused-kernel launches beside those
+of them that built their line tables from the unit cube.  Plotting
 (:mod:`mcalf_torch.plotting`) reads the chain files back, so
 ``dofit``/``doplot`` can run in separate invocations; with several spectra
 it plots each.
@@ -82,9 +83,11 @@ def _run(args, configpars) -> int:
         return _fit_and_plot(args, configpars)
     # --debug counts the slice loop's active rows (printed per seed) and
     # prints the seconds of each phase span of this fit
+    from mcalf_torch.ops import voigt_cuda
     from mcalf_torch.utils import profiling
 
     before = {k: len(v) for k, v in profiling.get_timings().items()}
+    launches = voigt_cuda.launches, voigt_cuda.cube_launches
     was = profiling.enable_counters(True)
     try:
         return _fit_and_plot(args, configpars)
@@ -94,6 +97,8 @@ def _run(args, configpars) -> int:
             spans = spans[before.get(name, 0):]
             if spans:
                 print(f"[DEBUG]: span {name}: {len(spans)} x, {sum(spans):.3f} s")
+        print(f"[DEBUG]: fused-kernel launches {voigt_cuda.launches - launches[0]}, "
+              f"{voigt_cuda.cube_launches - launches[1]} of them from the unit cube")
 
 
 def _fit_and_plot(args, configpars) -> int:

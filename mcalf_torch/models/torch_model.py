@@ -9,8 +9,13 @@ float32).  :func:`consts_from_numpy` carries that dict onto a device, and
 On a CUDA device the likelihood runs the fused kernel
 (:func:`mcalf_torch.ops.voigt_cuda.fused_loglike`) and the model flux the
 tau kernel (:func:`mcalf_torch.ops.voigt_cuda.voigt_tau`); on the CPU both
-run their plain PyTorch versions.  :class:`StackedForward` holds several
-problems' constants with a leading problem axis
+run their plain PyTorch versions.  The sampler's call, the likelihood of
+unit-cube points (:func:`loglike_cube_core`), is on a CUDA device one
+launch of the fused kernel that reads the points and the tables of
+:func:`cube_tables` (:func:`mcalf_torch.ops.voigt_cuda.fused_loglike_cube`),
+and on the CPU the PyTorch glue that kernel mirrors.
+:class:`StackedForward` holds several problems' constants with a leading
+problem axis
 (:func:`mcalf_torch.models.batched.stack_problems`) and evaluates rows of
 any of them in one kernel launch (the fused kernel in ``'same_edge'``, the
 tau kernel in ``'wrap'`` and ``'same'``), each row's constants picked by
@@ -38,9 +43,11 @@ from mcalf_torch.ops.voigt_cuda import (
     MODE_HARRIS,
     MODE_HJERT,
     MODE_WINDOWED,
+    CubeTables,
     _runs,
     check_supported,
     fused_loglike,
+    fused_loglike_cube,
     voigt_tau,
 )
 
@@ -54,6 +61,7 @@ __all__ = [
     "loglike_from_fused",
     "loglike_core",
     "loglike_cube_core",
+    "cube_tables",
     "reconstruct_core",
     "chi2_core",
     "row_consts",
@@ -341,7 +349,7 @@ def fused_args(p, c, s: StaticSpec, dz=None, prob=None):
     specres, cont = _head(p, c, s)
     dz, gain, avoigt, dnu = _line_tables(p, c, s, dz)
     if s.half > 0 and "taps" in c:
-        kern = c["taps"]
+        kern = c["taps"].reshape(-1, 2 * s.half + 1)
     elif s.half > 0:
         sigma_pix = (specres / FWHM_TO_SIGMA) / c["velstep"]
         kern = gaussian_kernel(sigma_pix.to(torch.float32), s.half)
@@ -425,15 +433,46 @@ def loglike_cube_core(u, c, s: StaticSpec, prob=None):
     """Log-likelihood of unit-cube points.  With ``prob`` (B,) int32, ``c``
     is a stacked set (:func:`mcalf_torch.models.batched.stack_problems`
     carried by :func:`consts_from_numpy`), ``u`` is (B, ndim), and row b
-    belongs to problem prob[b]."""
+    belongs to problem prob[b].
+
+    On a CUDA device in ``'same_edge'``: one launch of
+    :func:`fused_loglike_cube` on the tables of :func:`cube_tables`, which
+    makes in the kernel what the glue below makes in PyTorch.  Elsewhere
+    the glue: the cube transform, ``dz`` and :func:`loglike_core`."""
+    u = torch.as_tensor(u, dtype=torch.float32)
+    if u.is_cuda and s.conv_mode == "same_edge":
+        ll = fused_loglike_cube(u.reshape(-1, s.ndim).contiguous(), prob, cube_tables(c, s),
+                                half=s.half, asymm=s.asymmlike)
+        return ll.reshape(u.shape[:-1])
     if prob is not None:
         c = row_consts(c, prob)
     # dz derived straight from the unit cube: resolution eps * zspan (~2.4e-9
     # in z) instead of the f32 redshift's eps * (1+z) ~ 2.4e-7 -- see the
     # d0/zmid note in build_consts.
-    u = torch.as_tensor(u, dtype=torch.float32)
     dz = (u[..., c["u_zidx"]] - 0.5) * c["zspan"]
     return loglike_core(cube_to_params_core(u, c), c, s, dz=dz, prob=prob)
+
+
+def cube_tables(c: Mapping[str, torch.Tensor], s: StaticSpec) -> CubeTables:
+    """What :func:`fused_loglike_cube` reads of a forward model's constants
+    ``c`` (one problem's, or a stacked set's with the problem axis): the
+    tensors as they are held, no copy, and the parameter vector's columns
+    from ``s``."""
+    fixed = s.half > 0 and not s.freespecres
+    gp = (lambda k: c[k]) if s.has_gpriors else (lambda k: None)
+    return CubeTables(
+        lo=c["lo"], hi=c["hi"], zspan=c["zspan"], inv_wrest_cm=c["inv_wrest_cm"],
+        gamma=c["gamma"], f=c["f"], taps=c.get("taps") if fixed else None,
+        velstep=c["velstep"], contval=c["contval"], const_term=c["const_term"],
+        cdf4=c["cdf4"], cdf5=c["cdf5"], grace=c["grace"],
+        gp_mu=gp("gp_mu"), gp_isig2=gp("gp_isig2"), gp_norm=gp("gp_norm"),
+        d0=c["d0"], cw=c["c_over_wave"], data=c["data"], ivar=c["ivar"],
+        inv_noise=c["inv_noise"], pidx=c["pidx"], u_zidx=c["u_zidx"],
+        comp_id=c["comp_id"], is_fill=c["is_fill"], tmin=c["tmin"], modes=c["modes"],
+        startind=s.startind,
+        specres_at=0 if s.freespecres else -1,
+        cont_at=(1 if s.freespecres else 0) if s.freecont else -1,
+    )
 
 
 #: stacked tables that the kernels index by problem themselves, or that the
@@ -493,10 +532,24 @@ class _HeldConsts(nn.Module):
         return {k: getattr(self, k) for k in self._names}
 
 
+def _fixed_taps(fixed_specres, velstep, half: int) -> torch.Tensor:
+    """LSF taps of a fixed resolution, by the expression :func:`fused_args`
+    and :func:`reconstruct_core` evaluate for a free one."""
+    return gaussian_kernel(((fixed_specres / FWHM_TO_SIGMA) / velstep).to(torch.float32), half)
+
+
 class TorchForward(_HeldConsts):
     """Forward model + likelihood of one fit problem, its constants held as
     buffers on one device.  Every method takes arbitrary leading batch axes
-    on ``p`` (physical parameters, (..., ndim)) or ``u`` (unit cube)."""
+    on ``p`` (physical parameters, (..., ndim)) or ``u`` (unit cube).
+
+    With a fixed resolution the LSF taps (K,) are made once here."""
+
+    def __init__(self, static: StaticSpec, consts: Mapping[str, torch.Tensor]):
+        extra = {}
+        if static.half > 0 and not static.freespecres:
+            extra["taps"] = _fixed_taps(consts["fixed_specres"], consts["velstep"], static.half)
+        super().__init__(static, consts, extra)
 
     def loglike_cube(self, u):
         """(..., ndim) unit-cube points -> (...) log-likelihood."""
@@ -554,11 +607,8 @@ class StackedForward(_HeldConsts):
         extra = {}
         if static.half > 0 and not static.freespecres:
             extra["taps"] = torch.cat([
-                gaussian_kernel(
-                    ((consts["fixed_specres"][q] / FWHM_TO_SIGMA)
-                     / consts["velstep"][q]).to(torch.float32),
-                    static.half,
-                ).reshape(1, -1)
+                _fixed_taps(consts["fixed_specres"][q], consts["velstep"][q],
+                            static.half).reshape(1, -1)
                 for q in range(nprob)
             ])
         super().__init__(static, consts, extra)

@@ -29,6 +29,8 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
+
 from mcalf_torch.ops import faddeeva
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -62,6 +64,9 @@ def _c_float(v) -> str:
 
 def coefficient_header() -> str:
     """The kernels' constant tables, generated from ops/faddeeva.py."""
+    from mcalf_torch.models.forward import TAU_CONST
+    from mcalf_torch.ops.convolve import FWHM_TO_SIGMA
+
     f = faddeeva
     lines = [
         "// Generated by mcalf_torch/ops/_build.py from mcalf_torch/ops/faddeeva.py.",
@@ -86,6 +91,14 @@ def coefficient_header() -> str:
         f"#define MCALF_916_INV_UP {_c_array(1.0 / r for r in f.UP_RATIO)}",
         f"#define MCALF_E_QUARTER {_c_float(f.E_QUARTER)}",
         f"#define MCALF_R2_SWITCH {_c_float(f.R2_SWITCH)}",
+        # the float32 values PyTorch's kernels use for the glue's Python
+        # constants: TAU_CONST and 4 pi (a scalar operand, cast to float32),
+        # and 1 / FWHM_TO_SIGMA (a division by a scalar, on CUDA a product
+        # with its float32 reciprocal)
+        f"#define MCALF_TAU_CONST {_c_float(np.float32(TAU_CONST))}",
+        f"#define MCALF_FOUR_PI {_c_float(np.float32(4.0 * math.pi))}",
+        "#define MCALF_INV_FWHM_TO_SIGMA "
+        f"{_c_float(np.float32(1.0) / np.float32(FWHM_TO_SIGMA))}",
     ]
     return "\n".join(lines) + "\n"
 

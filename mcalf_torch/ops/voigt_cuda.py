@@ -20,7 +20,12 @@
   with an optional problem axis: given ``prob`` (B,), sample b reads
   problem prob[b]'s d0, cw, data, ivar and inv_noise out of stacked
   (Q, T, P) and (Q, P) tables (the fleet's stacked problems, one launch
-  for all of them).
+  for all of them);
+
+* :func:`fused_loglike_cube` -- the same kernel fed the rows' unit-cube
+  points (the sampler's call): it makes each row's line tables, taps and
+  continuum from its point and writes log L, so a likelihood call is one
+  launch (:class:`CubeTables` lists what it reads besides the rows).
 
 ``H_t`` is chosen per transition by the int32 mode table (the JAX
 package's static per-transition choice in ``_accum_tau``):
@@ -31,8 +36,9 @@ strongly damped transition.
 
 Each wrapper dispatches on where its tensors live: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise.  ``launches`` and
-``tau_launches`` count kernel launches as the card runs them: a launch
-captured in a CUDA graph counts at each replay
+``tau_launches`` count kernel launches as the card runs them, and
+``cube_launches`` the fused launches that built their line tables from
+the unit cube: a launch captured in a CUDA graph counts at each replay
 (:func:`mcalf_torch.utils.profiling.count_launch`).  The kernels' design and what
 bounds them are noted in their sources; their launch geometries (the fused
 kernel's thread block cluster per sample, the tau kernel's CTA per sample
@@ -45,7 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import weakref
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +67,9 @@ __all__ = [
     "voigt_tau_plain",
     "fused_loglike",
     "fused_loglike_plain",
+    "fused_loglike_cube",
+    "fused_loglike_cube_plain",
+    "CubeTables",
     "check_supported",
     "fused_geometry",
     "fused_occupancy",
@@ -69,13 +78,17 @@ __all__ = [
     "tau_occupancy",
     "TauGeometry",
     "launches",
+    "cube_launches",
     "tau_launches",
 ]
 
 MODE_HARRIS, MODE_WINDOWED, MODE_HJERT = 0, 1, 2
 
-#: number of CUDA kernel launches made by :func:`fused_loglike`
+#: number of CUDA kernel launches made by :func:`fused_loglike` and
+#: :func:`fused_loglike_cube`
 launches = 0
+#: of those, the launches made by :func:`fused_loglike_cube`
+cube_launches = 0
 #: number of CUDA kernel launches made by :func:`voigt_tau`
 tau_launches = 0
 
@@ -114,6 +127,21 @@ def _fused_fn():
     # 17 pointers (prob may be null), B, T, P, half, tile, cluster, smem,
     # kern_stride, cont_stride, asymm, damped, stream
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_cube_fn():
+    """The fused kernel's C entry point for unit-cube rows."""
+    from mcalf_torch.ops._build import load
+
+    fn = load().lib.mcalf_fused_loglike_cube
+    fn.restype = ctypes.c_int
+    # the pointers of _CUBE_POINTERS (taps, the Gaussian priors' and prob
+    # may be null), B, T, P, half, tile, cluster, smem, ndim, startind,
+    # specres_at, cont_at, asymm, damped, stream
+    fn.argtypes = ([ctypes.c_void_p] * len(_CUBE_POINTERS) + [ctypes.c_int] * 13
+                   + [ctypes.c_void_p])
     return fn
 
 
@@ -181,18 +209,20 @@ def check_supported(T: int, P: int, half: int) -> None:
     fused_geometry(T, P, half)
 
 
-def fused_occupancy(T: int, P: int, half: int, damped: bool) -> Tuple[int, int]:
+def fused_occupancy(T: int, P: int, half: int, damped: bool,
+                    cube: bool = False) -> Tuple[int, int]:
     """(CTAs resident per SM, clusters resident on the card) of the fused
     kernel at this geometry, as the CUDA runtime computes them; ``damped``
-    picks the instantiation for a model with a strongly damped transition."""
+    picks the instantiation for a model with a strongly damped transition,
+    ``cube`` the one :func:`fused_loglike_cube` launches."""
     from mcalf_torch.ops._build import load
 
     g = fused_geometry(T, P, half)
     ctas, clusters = ctypes.c_int(0), ctypes.c_int(0)
     fn = load().lib.mcalf_fused_occupancy
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
-    err = fn(T, P, half, g.tile, g.cluster, g.smem, int(damped),
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+    err = fn(T, P, half, g.tile, g.cluster, g.smem, int(damped), int(cube),
              ctypes.addressof(ctas), ctypes.addressof(clusters))
     if err != 0:
         raise RuntimeError(f"fused kernel occupancy query failed: CUDA error {err}")
@@ -569,3 +599,188 @@ def fused_loglike(
 def _add_launches(n: int) -> None:
     global launches
     launches += n
+
+
+class CubeTables(NamedTuple):
+    """What :func:`fused_loglike_cube` reads besides the rows: the
+    per-problem tables, ``([Q,] ...)`` and read at row ``prob[b]`` (the
+    whole table without a problem axis), the layout and mode tables shared
+    by every problem, and three columns of the parameter vector.
+    ``mcalf_torch.models.torch_model.cube_tables`` makes it from a forward
+    model's constants."""
+
+    lo: torch.Tensor            # ([Q,] ndim) prior box
+    hi: torch.Tensor            # ([Q,] ndim)
+    zspan: torch.Tensor         # ([Q,] T) redshift prior width per transition
+    inv_wrest_cm: torch.Tensor  # ([Q,] T)
+    gamma: torch.Tensor         # ([Q,] T)
+    f: torch.Tensor             # ([Q,] T)
+    taps: Optional[torch.Tensor]  # ([Q,] K) a fixed resolution's LSF; None: free
+    velstep: torch.Tensor       # ([Q,])
+    contval: torch.Tensor       # ([Q,]) a fixed continuum
+    const_term: torch.Tensor    # ([Q,])
+    cdf4: torch.Tensor          # ([Q,])
+    cdf5: torch.Tensor          # ([Q,])
+    grace: torch.Tensor         # ([Q,])
+    gp_mu: Optional[torch.Tensor]     # ([Q,] ndim); None: no Gaussian priors
+    gp_isig2: Optional[torch.Tensor]  # ([Q,] ndim)
+    gp_norm: Optional[torch.Tensor]   # ([Q,])
+    d0: torch.Tensor            # ([Q,] T, P)
+    cw: torch.Tensor            # ([Q,] P)
+    data: torch.Tensor          # ([Q,] P)
+    ivar: torch.Tensor          # ([Q,] P)
+    inv_noise: torch.Tensor     # ([Q,] P)
+    pidx: torch.Tensor          # (T,) int64 column of each transition's log N
+    u_zidx: torch.Tensor        # (T,) int64 column of its redshift
+    comp_id: torch.Tensor       # (T,) float32 component of each transition
+    is_fill: torch.Tensor       # (T,) bool filler transitions (always active)
+    tmin: torch.Tensor          # (T,) float32
+    modes: torch.Tensor         # (T,) int32
+    startind: int               # column of the number of active components
+    specres_at: int             # column of a free resolution, else -1
+    cont_at: int                # column of a free continuum, else -1
+
+
+#: the fields of :class:`CubeTables` with a leading problem axis when stacked
+_PER_PROBLEM = ("lo", "hi", "zspan", "inv_wrest_cm", "gamma", "f", "taps",
+                "velstep", "contval", "const_term", "cdf4", "cdf5", "grace",
+                "gp_mu", "gp_isig2", "gp_norm", "d0", "cw", "data", "ivar",
+                "inv_noise")
+
+
+#: the pointer arguments of csrc/fused_loglike.cu's mcalf_fused_loglike_cube,
+#: in its order: the rows, the tables, the problem axis and the output
+_CUBE_POINTERS = (("u",) + _PER_PROBLEM[:16] + ("pidx", "u_zidx", "comp_id", "is_fill")
+                  + _PER_PROBLEM[16:] + ("tmin", "modes", "prob", "loglike"))
+
+
+def fused_loglike_cube_plain(u, prob, t: CubeTables, *, half: int,
+                             asymm: bool) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_loglike_cube`, on any device:
+    the glue the kernel mirrors (``torch_model.loglike_cube_core`` on the
+    CPU: the cube transform, ``dz``, ``fused_args``,
+    :func:`fused_loglike_plain` and ``loglike_from_fused``) fed the tables
+    of ``t``.  With ``prob``, each run of consecutive rows of one problem
+    is one call on that problem's tables, as for
+    :func:`fused_loglike_plain`."""
+    if prob is not None:
+        if u.shape[0] == 0:
+            return torch.zeros((0,), dtype=torch.float32, device=u.device)
+        return torch.cat([
+            fused_loglike_cube_plain(
+                u[a:b], None,
+                t._replace(**{k: getattr(t, k)[q] for k in _PER_PROBLEM
+                              if getattr(t, k) is not None}),
+                half=half, asymm=asymm)
+            for a, b, q in _runs(prob)
+        ])
+    from mcalf_torch.models import torch_model as tm
+
+    T, P = t.d0.shape[-2:]
+    freespecres, freecont = t.specres_at >= 0, t.cont_at >= 0
+    # the glue reads a free resolution in column 0 and a free continuum next
+    if t.specres_at not in (-1, 0) or freecont and t.cont_at != int(freespecres):
+        raise ValueError(f"specres_at {t.specres_at}, cont_at {t.cont_at}: not the glue's "
+                         "columns")
+    s = tm.StaticSpec(ndim=u.shape[1], npix=P, ntrans=T, startind=t.startind,
+                      freecont=freecont, freespecres=freespecres, half=half,
+                      conv_mode="same_edge", asymmlike=bool(asymm),
+                      has_gpriors=t.gp_mu is not None)
+    c = {k: v for k, v in t._asdict().items() if isinstance(v, torch.Tensor)}
+    c["c_over_wave"] = c.pop("cw")
+    c["fixed_specres"] = None  # a fixed resolution comes as its taps
+    p = tm.cube_to_params_core(u, c)
+    dz = (u[..., c["u_zidx"]] - 0.5) * c["zspan"]
+    chi2, n4, n5 = fused_loglike_plain(*tm.fused_args(p, c, s, dz=dz), half=half,
+                                       asymm=s.asymmlike)
+    return tm.loglike_from_fused(p, c, s, chi2, n4, n5)
+
+
+def _check_cube_inputs(u, prob, t: CubeTables, half: int) -> None:
+    """What the cube kernel reads: every table contiguous on the rows'
+    device in its dtype, per-problem tables with the problem axis exactly
+    when ``prob`` is given, and columns inside the parameter vector."""
+    B, ndim = u.shape
+    T, P = t.d0.shape[-2:]
+    lead = () if prob is None else (t.d0.shape[0],)
+    K = 2 * half + 1
+    if t.taps is None and half > 0 and t.specres_at < 0:
+        raise ValueError("taps: None needs a free resolution (specres_at)")
+    if (t.gp_mu is None) != (t.gp_isig2 is None) or (t.gp_mu is None) != (t.gp_norm is None):
+        raise ValueError("gp_mu, gp_isig2, gp_norm: give all three or none")
+    if not all(-1 <= j < ndim for j in (t.specres_at, t.cont_at)) or not 0 <= t.startind < ndim:
+        raise ValueError(f"startind {t.startind}, specres_at {t.specres_at}, cont_at "
+                         f"{t.cont_at}: outside the {ndim} parameters")
+    if K > THREADS:
+        raise ValueError(f"{K} LSF taps: the kernel builds at most {THREADS}")
+    want = {
+        "lo": (ndim,), "hi": (ndim,), "zspan": (T,), "inv_wrest_cm": (T,),
+        "gamma": (T,), "f": (T,), "taps": (K,), "velstep": (), "contval": (),
+        "const_term": (), "cdf4": (), "cdf5": (), "grace": (), "gp_mu": (ndim,),
+        "gp_isig2": (ndim,), "gp_norm": (), "d0": (T, P), "cw": (P,), "data": (P,),
+        "ivar": (P,), "inv_noise": (P,),
+    }
+    named = [("u", u, torch.float32, (B, ndim))]
+    named += [(k, getattr(t, k), torch.float32, lead + shape) for k, shape in want.items()]
+    named += [("pidx", t.pidx, torch.int64, (T,)), ("u_zidx", t.u_zidx, torch.int64, (T,)),
+              ("comp_id", t.comp_id, torch.float32, (T,)),
+              ("is_fill", t.is_fill, torch.bool, (T,)),
+              ("tmin", t.tmin, torch.float32, (T,)), ("modes", t.modes, torch.int32, (T,))]
+    for name, x, dtype, shape in named:
+        if x is None:
+            continue
+        if x.device != u.device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(
+                f"{name}: need a contiguous {dtype} tensor on {u.device}, got "
+                f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
+            )
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(x.shape)} != {shape}")
+    if prob is not None:
+        _check_prob(prob, u, t.d0, B)
+
+
+def fused_loglike_cube(u, prob, t: CubeTables, *, half: int, asymm: bool) -> torch.Tensor:
+    """Log-likelihood (B,) float32 of unit-cube rows ``u`` (B, ndim) in one
+    launch of the fused kernel: each row's parameters, line tables, LSF taps
+    and continuum are made from its point inside the kernel, by the same
+    float32 operations as the PyTorch glue of
+    ``mcalf_torch.models.torch_model.loglike_cube_core``, and the kernel
+    writes -0.5 (chi^2 + const_term), -inf where the asymmlike counts pass
+    cdf + grace, less the Gaussian priors' term.
+
+    ``prob``: optional (B,) int32 problem of each row; the per-problem
+    tables of ``t`` then have a leading problem axis, and every entry of
+    prob must lie in [0, Q) (not checked: that would cost a device read).
+    Adds one to :data:`launches` and :data:`cube_launches`."""
+    if u.device.type == "cpu":
+        return fused_loglike_cube_plain(u, prob, t, half=half, asymm=asymm)
+    if u.device.type != "cuda":
+        raise ValueError(f"fused_loglike_cube runs on cpu or cuda, not {u.device}")
+    if u.dim() != 2:
+        raise ValueError(f"u: shape {tuple(u.shape)}, need (B, ndim)")
+    B, ndim = u.shape
+    T, P = t.d0.shape[-2:]
+    geo = fused_geometry(T, P, half)
+    _check_cube_inputs(u, prob, t, half)
+    out = torch.empty((B,), dtype=torch.float32, device=u.device)
+    if B == 0:
+        return out
+    rows = {"u": u, "prob": prob, "loglike": out}
+    ptrs = [rows[k] if k in rows else getattr(t, k) for k in _CUBE_POINTERS]
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = _fused_cube_fn()(
+        *(None if x is None else x.data_ptr() for x in ptrs),
+        B, T, P, half, geo.tile, geo.cluster, geo.smem, ndim, t.startind,
+        t.specres_at, t.cont_at, int(bool(asymm)), int(_any_damped(t.modes)), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_loglike_cube kernel launch failed: CUDA error {err}")
+    count_launch(_add_cube_launches)
+    return out
+
+
+def _add_cube_launches(n: int) -> None:
+    global launches, cube_launches
+    launches += n
+    cube_launches += n

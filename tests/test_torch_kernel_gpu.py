@@ -552,3 +552,199 @@ def test_window_off_likelihood_matches_window_on():
     lw = on.loglike_cube(u).double().cpu().numpy()
     assert np.isfinite(l0).all() and np.isfinite(lw).all()
     assert np.max(np.abs(lw - l0) / (np.abs(l0) + 1.0)) < 3e-6
+
+
+# ---- the unit-cube entry: one launch per likelihood call --------------------
+
+def _table_path(fwd, u, prob=None):
+    """log L by the (B, T) tables the PyTorch glue makes around
+    fused_loglike: the sampler's path before the cube entry."""
+    s, c = fwd.static, fwd.consts()
+    if prob is not None:
+        c = tm.row_consts(c, prob)
+    dz = (u[:, c["u_zidx"]] - 0.5) * c["zspan"]
+    return tm.loglike_core(tm.cube_to_params_core(u, c), c, s, dz=dz, prob=prob)
+
+
+def _cube_rows(ndim, B, seed):
+    """B unit-cube rows, four of them on the cube's faces."""
+    u = np.random.default_rng(seed).uniform(0.02, 0.98, (B, ndim)).astype(np.float32)
+    u[0], u[1] = 0.0, 1.0
+    u[2, ::2] = 0.0
+    u[3, 1::2] = 1.0
+    return torch.from_numpy(u).cuda()
+
+
+def _stacked_flagship(name="flagship_symm", Q=8):
+    """Q problems stacked as the fleet stacks them: the flagship and its
+    model on a shorter range padded to the same pixels, in turn."""
+    from mcalf_torch.models.batched import pad_model_to_npix, stack_problems
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = str(TESTDATA / "civ_mock_spec_multicomp.txt")
+    full = AbsorptionModel.from_file(spec, **MODELS[name])
+    short = AbsorptionModel.from_file(spec, **dict(MODELS[name], fitrange=[(6182.0, 6216.0)]))
+    models = [full, pad_model_to_npix(short, full.npix)] * (Q // 2)
+    return tm.make_stacked_forward(*stack_problems(models), "cuda")
+
+
+@pytest.mark.parametrize("name", ("flagship_symm", "flagship"))
+def test_cube_entry_is_the_table_path_on_stacked_rows(name):
+    """Q = 8 problems x B = 100 rows in one launch, as the flagship's fleet
+    calls it: log L bit for bit the table path's, one launch counted."""
+    sf = _stacked_flagship(name)
+    s = sf.static
+    u = _cube_rows(s.ndim, 800, seed=17)
+    prob = torch.arange(8, device="cuda", dtype=torch.int32).repeat_interleave(100)
+    want = _table_path(sf, u, prob)
+    before = voigt_cuda.launches, voigt_cuda.cube_launches
+    got = sf.loglike_cube(u, prob)
+    assert (voigt_cuda.launches, voigt_cuda.cube_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want)
+    if not s.asymmlike:
+        assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("B", (100, 37, 1))
+def test_cube_entry_is_the_table_path_on_solo_rows(any_fwd, B):
+    """A solo forward (no problem axis): flagship, narrow and mixed, the
+    Harris and the damped instantiations, bit for bit."""
+    u = _cube_rows(any_fwd.static.ndim, max(B, 4), seed=B)[:B].contiguous()
+    want = _table_path(any_fwd, u)
+    before = voigt_cuda.cube_launches
+    got = any_fwd.loglike_cube(u)
+    assert voigt_cuda.cube_launches == before + 1
+    assert torch.equal(got, want)
+
+
+def _free_forward():
+    """The flagship with a free resolution and continuum, the asymmetric
+    likelihood and Gaussian priors on its first component."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    m = AbsorptionModel.from_file(
+        str(TESTDATA / "civ_mock_spec_multicomp.txt"),
+        **dict(MODELS["flagship"], specres=[6.0, 10.0], contval=[0.9, 1.1]))
+    m.gpriors = ["8.0", "1.0"] + ["none"] * (2 * m.ndim - 2)
+    m.gpriors[6:12] = ["13.6", "0.5", "2.999", "0.001", "17.5", "5.0"]
+    return m, make_torch_forward(m, "cuda", gpriors=True)
+
+
+def test_cube_entry_with_a_free_resolution_continuum_and_gaussian_priors():
+    """The taps built in the prologue (their sum in tap order, PyTorch's in
+    another) and the Gaussian priors' sum (column order against PyTorch's
+    reduction): log L within rtol 1e-5 / atol 0.05 of the table path, the
+    -inf pattern exact; rows near the mock truth, so that the asymmetric
+    likelihood accepts some."""
+    m, fwd = _free_forward()
+    s = fwd.static
+    assert s.freespecres and s.freecont and s.asymmlike and s.has_gpriors
+    p = [8.0, 1.0, 10.5]
+    for N, z, b in zip([13.6, 13.0, 13.8, 13.6, 13.2, 13.4, 13.5, 14.0, 14.2, 13.7],
+                       [2.999, 2.9995, 3.0, 3.001, 3.0005, 3.0015, 3.002, 3.0025, 3.0035, 3.0039],
+                       [17.5, 10.5, 20.0, 25.0, 15.0, 30.0, 10.0, 25.0, 15.0, 20.0]):
+        p += [N, z, b]
+    p += [13.0, 3.0, 20.0]
+    u0 = (np.array(p) - m.bounds_lo) / (m.bounds_hi - m.bounds_lo)
+    rng = np.random.default_rng(1)
+    u = np.clip(u0[None] + rng.normal(0, 5e-4, (96, m.ndim)), 1e-4, 1 - 1e-4)
+    u = np.concatenate([u, rng.uniform(0.05, 0.95, (32, m.ndim))]).astype(np.float32)
+    u = torch.from_numpy(u).cuda()
+    got = fwd.loglike_cube(u).double().cpu().numpy()
+    want = _table_path(fwd, u).double().cpu().numpy()
+    assert np.array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    assert fin[:96].sum() > 40
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=0.05)
+
+
+def test_cube_entry_repeated_launches_are_bit_identical():
+    sf = _stacked_flagship()
+    u = _cube_rows(sf.static.ndim, 800, seed=5)
+    prob = torch.arange(8, device="cuda", dtype=torch.int32).repeat_interleave(100)
+    first = sf.loglike_cube(u, prob)
+    for _ in range(3):
+        assert torch.equal(sf.loglike_cube(u, prob), first)
+
+
+def test_cube_launches_count_at_each_replay_of_a_captured_graph():
+    """Inside a captured graph each likelihood call adds one to ``launches``
+    and to ``cube_launches`` at each replay, and nothing while captured; the
+    replays' log L is the eager call's."""
+    from mcalf_torch.utils.profiling import captured_launches
+
+    sf = _stacked_flagship()
+    u = _cube_rows(sf.static.ndim, 800, seed=6)
+    prob = torch.arange(8, device="cuda", dtype=torch.int32).repeat_interleave(100)
+    want = sf.loglike_cube(u, prob)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sf.loglike_cube(u, prob)  # warm-up on the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    before = voigt_cuda.launches, voigt_cuda.cube_launches
+    with captured_launches() as replayed:
+        with torch.cuda.graph(g):
+            out = sf.loglike_cube(u, prob)
+    assert (voigt_cuda.launches, voigt_cuda.cube_launches) == before
+    for n in (1, 2, 3):
+        g.replay()
+        replayed()
+        assert voigt_cuda.launches == before[0] + n
+        assert voigt_cuda.cube_launches == before[1] + n
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_cube_instantiations_keep_the_occupancy(any_fwd):
+    """The cube instantiations keep the table ones' CTAs per SM (5 Harris,
+    3 damped) and clusters on the card."""
+    s = any_fwd.static
+    damped = voigt_cuda._any_damped(any_fwd.modes)
+    table = voigt_cuda.fused_occupancy(s.ntrans, s.npix, s.half, damped)
+    cube = voigt_cuda.fused_occupancy(s.ntrans, s.npix, s.half, damped, cube=True)
+    assert cube == table and cube[0] == (3 if damped else 5)
+
+
+def _ptxas_counts():
+    """{(damped, cube): (registers, spill store bytes)} of the fused
+    kernel's four instantiations, from ptxas's output in the build log: the
+    entry's "Used ... registers", and the spill stores of the entry and of
+    every function ptxas lists under it (an out-of-line callee, such as the
+    free-resolution taps, spills in a frame of its own)."""
+    import re
+
+    from mcalf_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    out, key = {}, None
+    for line in _build.load().log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"fused_loglike_kernelILb([01])ELb([01])E", m.group(1))
+            key = (k.group(1) == "1", k.group(2) == "1") if k else None
+            if key is not None:
+                out[key] = [0, 0]
+            continue
+        if key is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key][0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[key][1] += int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def test_cube_instantiations_use_no_more_registers_or_spills():
+    """ptxas's counts: each cube instantiation within its table twin's
+    registers and spilled bytes, its called functions' spills included."""
+    counts = _ptxas_counts()
+    assert set(counts) == {(d, c) for d in (False, True) for c in (False, True)}, counts
+    for damped in (False, True):
+        regs, spills = counts[(damped, True)]
+        assert regs <= counts[(damped, False)][0] and spills <= counts[(damped, False)][1], counts

@@ -145,6 +145,15 @@ def test_debug_prints_the_counters_and_the_spans(fits):
     assert "proposals per slice pass" not in fits["plain"]["out"]
 
 
+def test_debug_prints_the_fused_launches(fits):
+    """One line of the fit's fused-kernel launches and those of them made
+    from the unit cube: none on the CPU, whose glue runs in PyTorch."""
+    lines = [ln for ln in fits["debug"]["out"].splitlines()
+             if ln.startswith("[DEBUG]: fused-kernel launches")]
+    assert lines == ["[DEBUG]: fused-kernel launches 0, 0 of them from the unit cube"]
+    assert "fused-kernel launches" not in fits["plain"]["out"]
+
+
 def test_counting_leaves_every_file_byte_for_byte(fits):
     plain = sorted(p.relative_to(fits["plain"]["dir"]) for p in fits["plain"]["dir"].rglob("*")
                    if p.is_file())

@@ -9,7 +9,11 @@ replayed between CUDA events, without the wrapper's host time) and call
 time (CUDA events around single calls), and the wrapper's host time per
 call (200 calls enqueued back to back on the host clock, before the
 synchronisation), on the flagship and the narrow flagship at B=100 and
-200, and ``voigt_tau`` alone at its posterior batch, B=1000.  Run it against an older checkout (a ``git archive`` of it) and this
+200, and ``voigt_tau`` alone at its posterior batch, B=1000; then the
+sampler's likelihood call, ``loglike_cube``, on the flagship as one seed
+(100 rows) and as the 8-seed fleet (800 stacked rows): the call's device
+time (every kernel it launches) and the ``fused_loglike`` kernel's alone
+on the same rows' line tables.  Run it against an older checkout (a ``git archive`` of it) and this
 one in turns, one after the other on the same card, to compare two
 versions of a kernel: the inputs are the same in both, made from a seed.
 Prints one line per cell, the card's name and power limit, and a JSON line
@@ -41,6 +45,40 @@ def _host_us(fn, n=200):
     host = time.perf_counter() - t0
     torch.cuda.synchronize()
     return 1e6 * host / n
+
+
+def _likelihood_calls(smoke, smi) -> dict:
+    """The flagship's ``loglike_cube`` as one seed and as an 8-seed fleet:
+    the call's device time and the fused kernel's alone on its rows."""
+    import torch
+
+    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.models import torch_model as tm
+    from mcalf_torch.models.batched import stack_problems
+    from mcalf_torch.ops import voigt_cuda
+
+    model = smoke._model("flagship")
+    out = {}
+    for Q in (1, 8):
+        if Q == 1:
+            fwd, prob = make_torch_forward(model, "cuda"), None
+        else:
+            fwd = tm.make_stacked_forward(*stack_problems([model] * Q), "cuda")
+            prob = torch.arange(Q, device="cuda", dtype=torch.int32).repeat_interleave(100)
+        s = fwd.static
+        u = smoke._batch(s.ndim, 100 * Q, False, seed=Q, layout=None)
+        call = (lambda: fwd.loglike_cube(u)) if Q == 1 else (lambda: fwd.loglike_cube(u, prob))
+        c = fwd.consts() if Q == 1 else tm.row_consts(fwd.consts(), prob)
+        dz = (u[:, c["u_zidx"]] - 0.5) * c["zspan"]
+        args = tm.fused_args(tm.cube_to_params_core(u, c), c, s, dz=dz, prob=prob)
+        fused = lambda: voigt_cuda.fused_loglike(*args, half=s.half, asymm=False, prob=prob)
+        rec = {"call_ms": [smoke._device_ms(call), smoke._device_ms(call)],
+               "fused_ms": [smoke._device_ms(fused), smoke._device_ms(fused)]}
+        out[f"loglike_cube Q={Q} x B=100"] = rec
+        print(f"[time] flagship loglike_cube, {Q} x 100 rows: call device "
+              f"{rec['call_ms'][0]:.4f}/{rec['call_ms'][1]:.4f} ms, fused_loglike alone "
+              f"{rec['fused_ms'][0]:.4f}/{rec['fused_ms'][1]:.4f} ms  [{smi}]")
+    return out
 
 
 def main() -> int:
@@ -88,6 +126,7 @@ def main() -> int:
                         f"{rec['fused_host_us']:.1f} us per call; " + text)
             out[f"{name} B={B}"] = rec
             print(f"[time] {name} B={B}: {text}  [{smi}]")
+    out.update(_likelihood_calls(smoke, smi))
     print(json.dumps(out))
     return 0
 
