@@ -16,7 +16,9 @@ the slice loop's row counters on (:func:`mcalf_torch.utils.profiling.enable_coun
 and prints, per seed, the proposals per slice pass and the share of the
 evaluated rows that were masked, the seconds of each phase span of the
 fit, one line per name, and the fit's fused-kernel launches beside those
-of them that built their line tables from the unit cube.  Plotting
+of them that built their line tables from the unit cube, with the (row,
+transition) pairs they evaluated (``lines``) and those of them that took
+the full damped Voigt function (``hjert_lines``).  Plotting
 (:mod:`mcalf_torch.plotting`) reads the chain files back, so
 ``dofit``/``doplot`` can run in separate invocations; with several spectra
 it plots each.
@@ -87,7 +89,8 @@ def _run(args, configpars) -> int:
     from mcalf_torch.utils import profiling
 
     before = {k: len(v) for k, v in profiling.get_timings().items()}
-    launches = voigt_cuda.launches, voigt_cuda.cube_launches
+    launches = (voigt_cuda.launches, voigt_cuda.cube_launches, voigt_cuda.lines,
+                voigt_cuda.hjert_lines)
     was = profiling.enable_counters(True)
     try:
         return _fit_and_plot(args, configpars)
@@ -98,7 +101,9 @@ def _run(args, configpars) -> int:
             if spans:
                 print(f"[DEBUG]: span {name}: {len(spans)} x, {sum(spans):.3f} s")
         print(f"[DEBUG]: fused-kernel launches {voigt_cuda.launches - launches[0]}, "
-              f"{voigt_cuda.cube_launches - launches[1]} of them from the unit cube")
+              f"{voigt_cuda.cube_launches - launches[1]} of them from the unit cube; "
+              f"lines {voigt_cuda.lines - launches[2]}, "
+              f"hjert_lines {voigt_cuda.hjert_lines - launches[3]}")
 
 
 def _fit_and_plot(args, configpars) -> int:

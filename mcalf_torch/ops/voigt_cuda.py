@@ -38,7 +38,9 @@ Each wrapper dispatches on where its tensors live: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise.  ``launches`` and
 ``tau_launches`` count kernel launches as the card runs them, and
 ``cube_launches`` the fused launches that built their line tables from
-the unit cube: a launch captured in a CUDA graph counts at each replay
+the unit cube; ``lines`` counts the (row, transition) pairs of the fused
+launches and ``hjert_lines`` those of a :data:`MODE_HJERT` transition: a
+launch captured in a CUDA graph counts at each replay
 (:func:`mcalf_torch.utils.profiling.count_launch`).  The kernels' design and what
 bounds them are noted in their sources; their launch geometries (the fused
 kernel's thread block cluster per sample, the tau kernel's CTA per sample
@@ -79,6 +81,8 @@ __all__ = [
     "TauGeometry",
     "launches",
     "cube_launches",
+    "lines",
+    "hjert_lines",
     "tau_launches",
 ]
 
@@ -89,6 +93,11 @@ MODE_HARRIS, MODE_WINDOWED, MODE_HJERT = 0, 1, 2
 launches = 0
 #: of those, the launches made by :func:`fused_loglike_cube`
 cube_launches = 0
+#: rows x transitions of those launches
+lines = 0
+#: of those, the rows x transitions of a MODE_HJERT transition (the full
+#: Algorithm 916 / asymptotic ``hjert`` on every pixel, no wing window)
+hjert_lines = 0
 #: number of CUDA kernel launches made by :func:`voigt_tau`
 tau_launches = 0
 
@@ -304,23 +313,29 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-#: id(modes) -> (weak reference to it, its version, any mode-2 transition)
+#: id(modes) -> (weak reference to it, its version, its mode-2 transitions)
 _DAMPED = {}
+
+
+def _hjert_count(modes: torch.Tensor) -> int:
+    """The mode table's strongly damped (:data:`MODE_HJERT`) transitions.
+    Read from the device once per table (one synchronisation) and kept
+    while that tensor lives unchanged: a model passes the same table to
+    every call."""
+    hit = _DAMPED.get(id(modes))
+    if hit is not None and hit[0]() is modes and hit[1] == modes._version:
+        return hit[2]
+    count = int((modes == MODE_HJERT).sum())
+    key = id(modes)
+    _DAMPED[key] = (weakref.ref(modes, lambda _: _DAMPED.pop(key, None)),
+                    modes._version, count)
+    return count
 
 
 def _any_damped(modes: torch.Tensor) -> bool:
     """Whether the mode table holds a strongly damped transition: each
-    kernel is compiled once for each case.  Read from the device once per
-    table (one synchronisation) and kept while that tensor lives unchanged:
-    a model passes the same table to every call."""
-    hit = _DAMPED.get(id(modes))
-    if hit is not None and hit[0]() is modes and hit[1] == modes._version:
-        return hit[2]
-    damped = bool((modes == MODE_HJERT).any())
-    key = id(modes)
-    _DAMPED[key] = (weakref.ref(modes, lambda _: _DAMPED.pop(key, None)),
-                    modes._version, damped)
-    return damped
+    kernel is compiled once for each case."""
+    return _hjert_count(modes) > 0
 
 
 def _check_cuda_inputs(B, T, P, named, modes) -> None:
@@ -578,6 +593,7 @@ def fused_loglike(
     n5 = torch.empty_like(chi2)
     if B == 0:
         return chi2, n4, n5
+    hjert = _hjert_count(modes)
     stream = torch.cuda.current_stream(dz.device).cuda_stream
     err = _fused_fn()(
         *(x.data_ptr() for _, x in named), modes.data_ptr(),
@@ -587,18 +603,31 @@ def fused_loglike(
         K if kern.shape[0] == B else 0,
         1 if cont.shape[0] == B else 0,
         int(bool(asymm)),
-        int(_any_damped(modes)),
+        int(hjert > 0),
         stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_loglike kernel launch failed: CUDA error {err}")
-    count_launch(_add_launches)
+    count_launch(_fused_counter(False, B, T, hjert))
     return chi2, n4, n5
 
 
-def _add_launches(n: int) -> None:
-    global launches
-    launches += n
+@functools.lru_cache(maxsize=256)
+def _fused_counter(cube: bool, rows: int, T: int, hjert: int):
+    """What :func:`count_launch` calls for a fused launch of ``rows`` rows
+    of ``T`` transitions, ``hjert`` of them :data:`MODE_HJERT`: each run adds
+    to :data:`launches`, :data:`lines` and :data:`hjert_lines`, and a cube
+    launch to :data:`cube_launches`.  One function per launch shape, so a
+    captured launch tallies once and a replay makes one call for it."""
+
+    def add(n: int) -> None:
+        global launches, cube_launches, lines, hjert_lines
+        launches += n
+        cube_launches += n if cube else 0
+        lines += n * rows * T
+        hjert_lines += n * rows * hjert
+
+    return add
 
 
 class CubeTables(NamedTuple):
@@ -752,7 +781,8 @@ def fused_loglike_cube(u, prob, t: CubeTables, *, half: int, asymm: bool) -> tor
     ``prob``: optional (B,) int32 problem of each row; the per-problem
     tables of ``t`` then have a leading problem axis, and every entry of
     prob must lie in [0, Q) (not checked: that would cost a device read).
-    Adds one to :data:`launches` and :data:`cube_launches`."""
+    Adds one to :data:`launches` and :data:`cube_launches`, and its rows
+    x transitions to :data:`lines` (:data:`hjert_lines`)."""
     if u.device.type == "cpu":
         return fused_loglike_cube_plain(u, prob, t, half=half, asymm=asymm)
     if u.device.type != "cuda":
@@ -768,19 +798,14 @@ def fused_loglike_cube(u, prob, t: CubeTables, *, half: int, asymm: bool) -> tor
         return out
     rows = {"u": u, "prob": prob, "loglike": out}
     ptrs = [rows[k] if k in rows else getattr(t, k) for k in _CUBE_POINTERS]
+    hjert = _hjert_count(t.modes)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = _fused_cube_fn()(
         *(None if x is None else x.data_ptr() for x in ptrs),
         B, T, P, half, geo.tile, geo.cluster, geo.smem, ndim, t.startind,
-        t.specres_at, t.cont_at, int(bool(asymm)), int(_any_damped(t.modes)), stream,
+        t.specres_at, t.cont_at, int(bool(asymm)), int(hjert > 0), stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_loglike_cube kernel launch failed: CUDA error {err}")
-    count_launch(_add_cube_launches)
+    count_launch(_fused_counter(True, B, T, hjert))
     return out
-
-
-def _add_cube_launches(n: int) -> None:
-    global launches, cube_launches
-    launches += n
-    cube_launches += n

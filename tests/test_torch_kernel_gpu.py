@@ -36,6 +36,9 @@ MODELS = {
     "flagship_symm": dict(_CIV, ncomp=(8, 11), brange=[10.0, 40.0]),
     # brange = 3, 40: all 22 transitions strongly damped (full hjert)
     "narrow": dict(_CIV, ncomp=(8, 11), brange=[3.0, 40.0], Asymmlike=True),
+    # benchmark/configs/civ_narrow.cfg: MC-ALF's default brange = 1, 30, all
+    # 22 transitions strongly damped, no asymmetric likelihood
+    "civ_narrow": dict(_CIV, ncomp=(8, 11), brange=[1.0, 30.0]),
     # CIV 1548 + HI 1215 + filler: windowed Harris and full hjert
     "mixed": dict(
         fitrange=[(6180.0, 6220.0)], fitlines=["CIV 1548", "HI 1215"],
@@ -589,7 +592,7 @@ def _stacked_flagship(name="flagship_symm", Q=8):
     return tm.make_stacked_forward(*stack_problems(models), "cuda")
 
 
-@pytest.mark.parametrize("name", ("flagship_symm", "flagship"))
+@pytest.mark.parametrize("name", ("flagship_symm", "flagship", "civ_narrow"))
 def test_cube_entry_is_the_table_path_on_stacked_rows(name):
     """Q = 8 problems x B = 100 rows in one launch, as the flagship's fleet
     calls it: log L bit for bit the table path's, one launch counted."""
@@ -696,6 +699,37 @@ def test_cube_launches_count_at_each_replay_of_a_captured_graph():
         assert voigt_cuda.cube_launches == before[1] + n
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("name", ("civ_narrow", "flagship_symm"))
+def test_line_counters_count_at_each_replay_of_a_captured_graph(name):
+    """The narrow fleet's stacked call (8 x 100 rows, every transition
+    MODE_HJERT) captured once: each replay adds 800 x 22 to ``lines`` and
+    to ``hjert_lines``; the flagship's adds none to ``hjert_lines``."""
+    from mcalf_torch.utils.profiling import captured_launches
+
+    sf = _stacked_flagship(name)
+    hjert = 22 if name == "civ_narrow" else 0
+    assert voigt_cuda._hjert_count(sf.modes) == hjert
+    u = _cube_rows(sf.static.ndim, 800, seed=7)
+    prob = torch.arange(8, device="cuda", dtype=torch.int32).repeat_interleave(100)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sf.loglike_cube(u, prob)  # warm-up on the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    before = voigt_cuda.lines, voigt_cuda.hjert_lines
+    with captured_launches() as replayed:
+        with torch.cuda.graph(g):
+            sf.loglike_cube(u, prob)
+    assert (voigt_cuda.lines, voigt_cuda.hjert_lines) == before
+    for n in (1, 2, 3):
+        g.replay()
+        replayed()
+        assert voigt_cuda.lines == before[0] + n * 800 * 22
+        assert voigt_cuda.hjert_lines == before[1] + n * 800 * hjert
+    torch.cuda.synchronize()
 
 
 def test_cube_instantiations_keep_the_occupancy(any_fwd):
