@@ -7,11 +7,15 @@
 // _ll_kernel and _ll_kernel_win.  The TPU needed a window table because its
 // vector unit evaluates both sides of a select; here a per-pixel branch skips
 // the work a pixel does not need by itself, so ONE kernel computes every
-// transition's H in its mode (voigt_h.cuh): plain Harris (mode 0), the
+// line's H in its mode (voigt_h.cuh): plain Harris (mode 0), the
 // hjert_harris_win selection (mode 1: u^2 < tmin takes the full Harris
 // expansion, the rest the 7-term wing polynomial), or full hjert (mode 2:
-// Algorithm 916 where u^2 + a^2 < 111, the asymptotic form elsewhere).  That
-// is exactly _ll_kernel's value, and _ll_kernel_win's to within its own
+// Algorithm 916 where u^2 + a^2 < 111, the asymptotic form elsewhere).  The
+// mode table sets modes 0 and 1 per transition; mode 2 is chosen per line
+// from the row's own damping and gain (voigt_h.cuh line_mode), since a
+// transition whose prior allows strong damping is weakly damped in most
+// rows.  That is _ll_kernel's value to within Harris's accuracy below
+// HARRIS_A_MAX, and _ll_kernel_win's to within its own
 // amp_max * e^{-tmin} < 1e-8 tau bound.
 //
 // What bounds it on an H100: the special functions.  Per (transition, pixel)
@@ -29,8 +33,9 @@
 //     that is 800 CTAs over the 132 SMs, one pixel per thread.
 //   * Registers: two instantiations, chosen by the host from the mode table
 //     (voigt_cuda._any_damped).  A model with only Harris transitions runs in
-//     48 registers, 5 CTAs (40 warps) per SM; one with a strongly damped
-//     transition needs 80 for the non-inlined 916 call, 3 CTAs (24 warps).
+//     48 registers, 5 CTAs (40 warps) per SM; one with a transition that may
+//     be strongly damped needs 80 for the non-inlined 916 call, 3 CTAs (24
+//     warps), and counts the lines that took mode 2 (hjert_lines_count).
 //   * Per (transition, pixel) step: the transition's scalars are one 32-byte
 //     record in shared memory (voigt_h.cuh LineTables), d0 is walked by a
 //     pointer and loaded one transition ahead, mode 0 is folded into the
@@ -149,6 +154,13 @@ struct CubeRows {
   int specres_at, cont_at;    // columns of a free resolution / continuum, else -1
 };
 
+// The lines that took mode 2, summed over every launch of a damped
+// instantiation since the library was loaded (one atomic per row, from the
+// row's list of them in CTA 0): what
+// voigt_cuda.hjert_lines reads.  A static symbol, so a launch captured in a
+// CUDA graph adds at each replay and nothing is allocated at capture.
+__device__ unsigned long long hjert_lines_count = 0;
+
 // A cube launch's row constants, left in shared memory by the prologue so
 // that nothing of the cube path stays live across the pixel loop: the
 // continuum, const_term, cdf4 + grace, cdf5 + grace and the Gaussian
@@ -187,6 +199,7 @@ __device__ __noinline__ void free_taps(const CubeRows& r, float* s_kern, int b, 
 // constants in shared memory, one thread per transition, per tap and (thread
 // 0) for the constants.  Every thread takes part and sees the filled tables
 // on return.
+template <bool kDamped>
 __device__ __forceinline__ void load_cube_tables(const CubeRows& r, mcalf::LineTables& L,
                                                  float* s_kern, int b, int q, int T,
                                                  int half, const float* __restrict__ tmin,
@@ -226,11 +239,12 @@ __device__ __forceinline__ void load_cube_tables(const CubeRows& r, mcalf::LineT
     const float amp = __fdiv_rn(
         __fmul_rn(__fmul_rn(MCALF_TAU_CONST, powf(10.0f, logn)), r.f[qt]), dnu);
     const float active = (r.comp_id[t] < nact) | r.is_fill[t] ? 1.0f : 0.0f;
-    const int m = mcalf::put_line(L, t, dz, dnu, __fmul_rn(active, amp), av, tmin, mode);
+    const int m =
+        mcalf::put_line<kDamped>(L, t, dz, dnu, __fmul_rn(active, amp), av, tmin, mode);
     damped |= m == 2;
     harris |= m != 2;
   }
-  mcalf::finish_line_tables(L, T, damped, harris);
+  mcalf::finish_line_tables<kDamped>(L, T, damped, harris);
 }
 
 // The epilogue of a cube launch: log L = -0.5 (chi^2 + const_term), -inf
@@ -298,16 +312,18 @@ fused_loglike_kernel(const __grid_constant__ Rows<kCube> rows,
   // Per-(sample, transition) scalars, read uniformly by every thread (the
   // loader ends in a barrier, which also publishes the taps).
   if constexpr (kCube) {
-    load_cube_tables(rows, L, s_kern, b, prob == nullptr ? 0 : prob[b], T, half, tmin,
-                     mode);
+    load_cube_tables<kDamped>(rows, L, s_kern, b, prob == nullptr ? 0 : prob[b], T, half,
+                              tmin, mode);
   } else {
     for (int k = tid; k < K; k += kThreads)
       s_kern[k] = rows.kern[b * rows.kern_stride + k];
-    mcalf::load_line_tables(L, b, T, rows.dz, rows.gain, rows.av, rows.dnu, tmin, mode);
+    mcalf::load_line_tables<kDamped>(L, b, T, rows.dz, rows.gain, rows.av, rows.dnu, tmin,
+                                     mode);
   }
 
   // tau synthesis + exp, one pixel per thread per step (kDamped is the
-  // host's L.any_damped), at this sample's problem's rows of the tables.
+  // host's choice from the mode table), at this sample's problem's rows of
+  // the tables.
   {
     const int qrow = problem_row(prob, b, P);
     const int d0_at = qrow * T + p0;  // d0 is (Q, T, P)
@@ -414,6 +430,11 @@ fused_loglike_kernel(const __grid_constant__ Rows<kCube> rows,
       rows.chi2[b] = s_chi;
       rows.n4[b] = static_cast<float>(s4);
       rows.n5[b] = static_cast<float>(s5);
+    }
+    if constexpr (kDamped) {  // the row's mode-2 lines, one atomic a row
+      int nh = 0;
+      for (int t = mcalf::any_hjert; t < T; t = __float_as_int(L.rec[2 * t + 1].x)) ++nh;
+      if (nh > 0) atomicAdd(&hjert_lines_count, static_cast<unsigned long long>(nh));
     }
   }
 }
@@ -542,6 +563,19 @@ extern "C" int mcalf_fused_loglike_cube(
                       B, T, P, half, tile, cluster, smem, asymm};
   return static_cast<int>(
       (damped ? launch<true, true> : launch<false, true>)(rows, sp, stream));
+}
+
+// The fused launches' mode-2 lines on `device` (hjert_lines_count), once
+// every launch issued to it has run: the one read of the counter, which
+// synchronises the device.  Returns the first CUDA error.
+extern "C" int mcalf_fused_hjert_lines(int device, unsigned long long* out) {
+  int was = 0;
+  cudaError_t e = cudaGetDevice(&was);
+  if (e == cudaSuccess) e = cudaSetDevice(device);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, hjert_lines_count, sizeof(*out));
+  const cudaError_t back = cudaSetDevice(was);
+  return static_cast<int>(e != cudaSuccess ? e : back);
 }
 
 // Occupancy of a geometry: CTAs of the kernel for `damped` and `cube`

@@ -269,6 +269,30 @@ def consts_from_numpy(
     return out
 
 
+def kernel_tmin(s: StaticSpec, c: Mapping[str, torch.Tensor]) -> tuple:
+    """The kernels' per-transition ``tmin`` table.  A Harris transition's is
+    its ``win_tmin``.  Another's (a :data:`MODE_HJERT` transition, whose
+    line the fused kernel gives the Harris expansion in a row whose own
+    damping is below HARRIS_A_MAX; the tau kernel and the plain versions
+    read none) is the wing threshold by :func:`static_spec`'s bound,
+    amp_max e^{-tmin} < 1e-8 in tau and at least HJERT_WIN_TMIN, from the
+    prior box in ``c`` (over every problem of a stacked set); 0, plain
+    Harris, when MCALF_TORCH_WINDOW=0."""
+    T = s.ntrans
+    tmin = np.array(s.win_tmin or (0.0,) * T, dtype=np.float64)
+    damped = ~np.array(s.harris or (True,) * T)
+    if damped.any() and os.environ.get("MCALF_TORCH_WINDOW", "1") != "0":
+        host = lambda k: c[k].detach().cpu().double().numpy()
+        pidx = c["pidx"].cpu().numpy().astype(np.int64)
+        lo = host("lo").reshape(-1, s.ndim)
+        hi = host("hi").reshape(-1, s.ndim)
+        dnu_min = lo[:, pidx + 2] * 1e5 * host("inv_wrest_cm").reshape(-1, T)
+        amp_max = (TAU_CONST * 10.0 ** hi[:, pidx] * host("f").reshape(-1, T) / dnu_min).max(0)
+        wing = np.maximum(HJERT_WIN_TMIN, np.log(np.maximum(amp_max, 1e-30) * 1e8))
+        tmin = np.where(damped, wing, tmin)
+    return tuple(float(v) for v in tmin)
+
+
 def line_modes(s: StaticSpec) -> tuple:
     """Per-transition Voigt evaluation, as the JAX package chooses it in
     ``reconstruct_core`` and ``_accum_tau``: windowed Harris where a wing
@@ -514,10 +538,8 @@ class _HeldConsts(nn.Module):
         self.npix = static.npix
         device = consts["d0"].device
         tables = {
-            "tmin": torch.tensor(
-                static.win_tmin or (0.0,) * static.ntrans,
-                dtype=torch.float32, device=device,
-            ),
+            "tmin": torch.tensor(kernel_tmin(static, consts), dtype=torch.float32,
+                                 device=device),
             "modes": torch.tensor(line_modes(static), dtype=torch.int32, device=device),
         }
         tables.update(extra)

@@ -91,6 +91,7 @@ def coefficient_header() -> str:
         f"#define MCALF_916_INV_UP {_c_array(1.0 / r for r in f.UP_RATIO)}",
         f"#define MCALF_E_QUARTER {_c_float(f.E_QUARTER)}",
         f"#define MCALF_R2_SWITCH {_c_float(f.R2_SWITCH)}",
+        f"#define MCALF_HARRIS_A_MAX {_c_float(np.float32(f.HARRIS_A_MAX))}",
         # the float32 values PyTorch's kernels use for the glue's Python
         # constants: TAU_CONST and 4 pi (a scalar operand, cast to float32),
         # and 1 / FWHM_TO_SIGMA (a division by a scalar, on CUDA a product

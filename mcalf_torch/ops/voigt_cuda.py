@@ -32,17 +32,24 @@ package's static per-transition choice in ``_accum_tau``):
 :data:`MODE_HARRIS` the plain Harris expansion, :data:`MODE_WINDOWED` the
 ``hjert_harris_win`` selection with threshold ``tmin[t]``, and
 :data:`MODE_HJERT` the full ``hjert`` (Algorithm 916 / asymptotic) of a
-strongly damped transition.
+transition whose prior allows strong damping.  The fused kernel then
+chooses per line: a :data:`MODE_HJERT` line keeps the full ``hjert`` only
+where its own damping ``av`` is at least ``HARRIS_A_MAX`` and its gain is
+nonzero, and takes the Harris expansion elsewhere (windowed where
+``tmin[t]`` is positive).  The tau kernel and the plain versions keep the
+table's choice.
 
 Each wrapper dispatches on where its tensors live: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise.  ``launches`` and
 ``tau_launches`` count kernel launches as the card runs them, and
 ``cube_launches`` the fused launches that built their line tables from
 the unit cube; ``lines`` counts the (row, transition) pairs of the fused
-launches and ``hjert_lines`` those of a :data:`MODE_HJERT` transition: a
-launch captured in a CUDA graph counts at each replay
-(:func:`mcalf_torch.utils.profiling.count_launch`).  The kernels' design and what
-bounds them are noted in their sources; their launch geometries (the fused
+launches: a launch captured in a CUDA graph counts at each replay
+(:func:`mcalf_torch.utils.profiling.count_launch`).  ``hjert_lines``, the
+lines of those launches that took the full ``hjert``, is counted by the
+card itself and read (with one synchronisation) when the name is read.
+The kernels' design and what bounds them are noted in their sources;
+their launch geometries (the fused
 kernel's thread block cluster per sample, the tau kernel's CTA per sample
 group and pixel tile) are :func:`fused_geometry`'s and
 :func:`tau_geometry`'s, here, where the CPU tests reach them.
@@ -95,9 +102,8 @@ launches = 0
 cube_launches = 0
 #: rows x transitions of those launches
 lines = 0
-#: of those, the rows x transitions of a MODE_HJERT transition (the full
-#: Algorithm 916 / asymptotic ``hjert`` on every pixel, no wing window)
-hjert_lines = 0
+# ``hjert_lines`` (module __getattr__): of those, the lines that took the
+# full Algorithm 916 / asymptotic ``hjert`` on every pixel, no wing window
 #: number of CUDA kernel launches made by :func:`voigt_tau`
 tau_launches = 0
 
@@ -315,6 +321,33 @@ def _sm_count(device_index: int) -> int:
 
 #: id(modes) -> (weak reference to it, its version, its mode-2 transitions)
 _DAMPED = {}
+#: indices of the devices that ran a damped fused launch: their counters
+#: hold ``hjert_lines``
+_HJERT_DEVICES = set()
+
+
+def _device_hjert_lines(index: int) -> int:
+    """The mode-2 lines of every damped fused launch on device ``index``,
+    counted by the kernel (csrc/fused_loglike.cu ``hjert_lines_count``):
+    waits for the device's work, then reads the counter."""
+    from mcalf_torch.ops._build import load
+
+    fn = load().lib.mcalf_fused_hjert_lines
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    out = ctypes.c_ulonglong(0)
+    err = fn(index, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"reading the fused kernel's hjert_lines failed: CUDA error {err}")
+    return out.value
+
+
+def __getattr__(name: str):
+    # hjert_lines syncs each device that counts it, so it is read only when
+    # asked for (never per launch or per replay; not during a graph capture)
+    if name == "hjert_lines":
+        return sum(_device_hjert_lines(i) for i in sorted(_HJERT_DEVICES))
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _hjert_count(modes: torch.Tensor) -> int:
@@ -593,7 +626,7 @@ def fused_loglike(
     n5 = torch.empty_like(chi2)
     if B == 0:
         return chi2, n4, n5
-    hjert = _hjert_count(modes)
+    damped = _any_damped(modes)
     stream = torch.cuda.current_stream(dz.device).cuda_stream
     err = _fused_fn()(
         *(x.data_ptr() for _, x in named), modes.data_ptr(),
@@ -603,29 +636,37 @@ def fused_loglike(
         K if kern.shape[0] == B else 0,
         1 if cont.shape[0] == B else 0,
         int(bool(asymm)),
-        int(hjert > 0),
+        int(damped),
         stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_loglike kernel launch failed: CUDA error {err}")
-    count_launch(_fused_counter(False, B, T, hjert))
+    _counted(dz.device, damped)
+    count_launch(_fused_counter(False, B, T))
     return chi2, n4, n5
 
 
+def _counted(device: torch.device, damped: bool) -> None:
+    """Note a fused launch's device: a damped launch counts its mode-2
+    lines there."""
+    if damped:
+        _HJERT_DEVICES.add(device.index if device.index is not None
+                           else torch.cuda.current_device())
+
+
 @functools.lru_cache(maxsize=256)
-def _fused_counter(cube: bool, rows: int, T: int, hjert: int):
+def _fused_counter(cube: bool, rows: int, T: int):
     """What :func:`count_launch` calls for a fused launch of ``rows`` rows
-    of ``T`` transitions, ``hjert`` of them :data:`MODE_HJERT`: each run adds
-    to :data:`launches`, :data:`lines` and :data:`hjert_lines`, and a cube
-    launch to :data:`cube_launches`.  One function per launch shape, so a
-    captured launch tallies once and a replay makes one call for it."""
+    of ``T`` transitions: each run adds to :data:`launches` and
+    :data:`lines`, and a cube launch to :data:`cube_launches`.  One function
+    per launch shape, so a captured launch tallies once and a replay makes
+    one call for it."""
 
     def add(n: int) -> None:
-        global launches, cube_launches, lines, hjert_lines
+        global launches, cube_launches, lines
         launches += n
         cube_launches += n if cube else 0
         lines += n * rows * T
-        hjert_lines += n * rows * hjert
 
     return add
 
@@ -782,7 +823,8 @@ def fused_loglike_cube(u, prob, t: CubeTables, *, half: int, asymm: bool) -> tor
     tables of ``t`` then have a leading problem axis, and every entry of
     prob must lie in [0, Q) (not checked: that would cost a device read).
     Adds one to :data:`launches` and :data:`cube_launches`, and its rows
-    x transitions to :data:`lines` (:data:`hjert_lines`)."""
+    x transitions to :data:`lines`; the card adds the lines that took the
+    full ``hjert`` to ``hjert_lines``."""
     if u.device.type == "cpu":
         return fused_loglike_cube_plain(u, prob, t, half=half, asymm=asymm)
     if u.device.type != "cuda":
@@ -798,14 +840,15 @@ def fused_loglike_cube(u, prob, t: CubeTables, *, half: int, asymm: bool) -> tor
         return out
     rows = {"u": u, "prob": prob, "loglike": out}
     ptrs = [rows[k] if k in rows else getattr(t, k) for k in _CUBE_POINTERS]
-    hjert = _hjert_count(t.modes)
+    damped = _any_damped(t.modes)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = _fused_cube_fn()(
         *(None if x is None else x.data_ptr() for x in ptrs),
         B, T, P, half, geo.tile, geo.cluster, geo.smem, ndim, t.startind,
-        t.specres_at, t.cont_at, int(bool(asymm)), int(hjert > 0), stream,
+        t.specres_at, t.cont_at, int(bool(asymm)), int(damped), stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_loglike_cube kernel launch failed: CUDA error {err}")
-    count_launch(_fused_counter(True, B, T, hjert))
+    _counted(u.device, damped)
+    count_launch(_fused_counter(True, B, T))
     return out

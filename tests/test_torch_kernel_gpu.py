@@ -701,18 +701,41 @@ def test_cube_launches_count_at_each_replay_of_a_captured_graph():
     assert torch.equal(out, want)
 
 
+def _damped_lines(f, u, prob):
+    """The (row, transition) pairs of a MODE_HJERT transition whose float32
+    damping reaches HARRIS_A_MAX with a nonzero gain, from the glue's own
+    (B, T) tables: the lines the fused kernel gives the full hjert."""
+    from mcalf_torch.ops.faddeeva import HARRIS_A_MAX
+
+    c = tm.row_consts(f.consts(), prob)
+    dz = (u[:, c["u_zidx"]] - 0.5) * c["zspan"]
+    _, gain, av = tm.fused_args(tm.cube_to_params_core(u, c), c, f.static, dz=dz)[:3]
+    hjert = (f.modes == voigt_cuda.MODE_HJERT)[None, :]
+    limit = torch.tensor(HARRIS_A_MAX, dtype=torch.float32, device=av.device)
+    return int((hjert & (av >= limit) & (gain != 0)).sum())
+
+
 @pytest.mark.parametrize("name", ("civ_narrow", "flagship_symm"))
 def test_line_counters_count_at_each_replay_of_a_captured_graph(name):
     """The narrow fleet's stacked call (8 x 100 rows, every transition
-    MODE_HJERT) captured once: each replay adds 800 x 22 to ``lines`` and
-    to ``hjert_lines``; the flagship's adds none to ``hjert_lines``."""
+    MODE_HJERT): one launch, then a capture replayed 3 times, each adds 800
+    x 22 to ``lines`` and, counted by the card, its strongly damped active
+    lines to ``hjert_lines`` (a few percent of the pairs); the flagship's
+    adds none to ``hjert_lines``."""
     from mcalf_torch.utils.profiling import captured_launches
 
     sf = _stacked_flagship(name)
-    hjert = 22 if name == "civ_narrow" else 0
-    assert voigt_cuda._hjert_count(sf.modes) == hjert
     u = _cube_rows(sf.static.ndim, 800, seed=7)
     prob = torch.arange(8, device="cuda", dtype=torch.int32).repeat_interleave(100)
+    damped = _damped_lines(sf, u, prob)
+    if name == "civ_narrow":
+        assert voigt_cuda._hjert_count(sf.modes) == 22 and 0 < damped < 800 * 22 // 4
+    else:
+        assert voigt_cuda._hjert_count(sf.modes) == 0 and damped == 0
+    before = voigt_cuda.lines, voigt_cuda.hjert_lines
+    sf.loglike_cube(u, prob)
+    assert (voigt_cuda.lines, voigt_cuda.hjert_lines) == (before[0] + 800 * 22,
+                                                          before[1] + damped)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -728,7 +751,7 @@ def test_line_counters_count_at_each_replay_of_a_captured_graph(name):
         g.replay()
         replayed()
         assert voigt_cuda.lines == before[0] + n * 800 * 22
-        assert voigt_cuda.hjert_lines == before[1] + n * 800 * hjert
+        assert voigt_cuda.hjert_lines == before[1] + n * damped
     torch.cuda.synchronize()
 
 
@@ -743,11 +766,11 @@ def test_cube_instantiations_keep_the_occupancy(any_fwd):
 
 
 def _ptxas_counts():
-    """{(damped, cube): (registers, spill store bytes)} of the fused
-    kernel's four instantiations, from ptxas's output in the build log: the
-    entry's "Used ... registers", and the spill stores of the entry and of
-    every function ptxas lists under it (an out-of-line callee, such as the
-    free-resolution taps, spills in a frame of its own)."""
+    """{(damped, cube): (registers, spill store bytes, spill load bytes)} of
+    the fused kernel's four instantiations, from ptxas's output in the build
+    log: the entry's "Used ... registers", and the spills of the entry and
+    of every function ptxas lists under it (an out-of-line callee, such as
+    the free-resolution taps, spills in a frame of its own)."""
     import re
 
     from mcalf_torch.ops import _build
@@ -761,16 +784,17 @@ def _ptxas_counts():
             k = re.search(r"fused_loglike_kernelILb([01])ELb([01])E", m.group(1))
             key = (k.group(1) == "1", k.group(2) == "1") if k else None
             if key is not None:
-                out[key] = [0, 0]
+                out[key] = [0, 0, 0]
             continue
         if key is None:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[key][0] = int(m.group(1))
-        m = re.search(r"(\d+) bytes spill stores", line)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             out[key][1] += int(m.group(1))
+            out[key][2] += int(m.group(2))
     return {k: tuple(v) for k, v in out.items()}
 
 
@@ -780,5 +804,18 @@ def test_cube_instantiations_use_no_more_registers_or_spills():
     counts = _ptxas_counts()
     assert set(counts) == {(d, c) for d in (False, True) for c in (False, True)}, counts
     for damped in (False, True):
-        regs, spills = counts[(damped, True)]
+        regs, spills = counts[(damped, True)][:2]
         assert regs <= counts[(damped, False)][0] and spills <= counts[(damped, False)][1], counts
+
+
+def test_register_and_spill_budgets():
+    """ptxas's counts: the Harris-only instantiations in 48 registers with
+    no spill (5 CTAs per SM; the per-line test of mode 2 is compiled out of
+    them), the damped ones in at most 80 registers with at most 4 bytes
+    spilled each way."""
+    counts = _ptxas_counts()
+    for (damped, cube), (regs, stores, loads) in counts.items():
+        if damped:
+            assert regs <= 80 and stores <= 4 and loads <= 4, counts
+        else:
+            assert (regs, stores, loads) == (48, 0, 0), counts

@@ -1,11 +1,12 @@
 """The flagship CIV fit at MC-ALF's default Doppler prior (b 1-30 km/s,
-``benchmark/configs/civ_narrow.cfg``): every transition takes the full
+``benchmark/configs/civ_narrow.cfg``): every transition's mode is the full
 damped Voigt function, and the port's plain CPU likelihood matches the
 benchmark's float64 reference within the port's bar (0.05 + 1e-5 |log L|)
 on rows with and without a line whose damping needs it.  Also the fused
-kernel's line counters (``voigt_cuda.lines``, ``hjert_lines``) as
-``count_launch`` drives them, and what the benchmark pins of the
-configuration."""
+kernel's line counters (``voigt_cuda.lines`` as ``count_launch`` drives
+it, ``hjert_lines`` through a stand-in for the card's counter), the wing
+thresholds its weakly damped lines take, and what the benchmark pins of
+the configuration."""
 
 import configparser
 import hashlib
@@ -113,12 +114,11 @@ def test_the_configuration_is_the_flagship_with_the_default_prior():
 
 
 def _count(modes, rows, captured_replays, monkeypatch):
-    """The counters' change for one cube launch of ``rows`` rows on the mode
-    table ``modes``, counted as the wrapper counts it: at once, or captured
-    and then replayed ``captured_replays`` times."""
-    before = (voigt_cuda.launches, voigt_cuda.cube_launches, voigt_cuda.lines,
-              voigt_cuda.hjert_lines)
-    add = voigt_cuda._fused_counter(True, rows, int(modes.numel()), voigt_cuda._hjert_count(modes))
+    """The host counters' change for one cube launch of ``rows`` rows on the
+    mode table ``modes``, counted as the wrapper counts it: at once, or
+    captured and then replayed ``captured_replays`` times."""
+    before = voigt_cuda.launches, voigt_cuda.cube_launches, voigt_cuda.lines
+    add = voigt_cuda._fused_counter(True, rows, int(modes.numel()))
     capturing = [bool(captured_replays)]
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
     if not captured_replays:
@@ -129,30 +129,173 @@ def _count(modes, rows, captured_replays, monkeypatch):
             capturing[0] = False
         for _ in range(captured_replays):
             replayed()
-    after = (voigt_cuda.launches, voigt_cuda.cube_launches, voigt_cuda.lines,
-             voigt_cuda.hjert_lines)
+    after = voigt_cuda.launches, voigt_cuda.cube_launches, voigt_cuda.lines
     return tuple(a - b for a, b in zip(after, before))
 
 
+@pytest.fixture
+def card(monkeypatch):
+    """A stand-in for the cards' ``hjert_lines`` counters: device index ->
+    the mode-2 lines its kernels counted; no device has run a damped fused
+    launch yet."""
+    counts = {}
+    monkeypatch.setattr(voigt_cuda, "_HJERT_DEVICES", set())
+    monkeypatch.setattr(voigt_cuda, "_device_hjert_lines", counts.__getitem__)
+    return counts
+
+
 @pytest.mark.parametrize("replays", (0, 3))
-def test_line_counters_per_mode_table(narrow, replays, monkeypatch):
-    """A damped table counts B x 22 lines and as many hjert lines; the
-    flagship's windowed-Harris table B x 22 lines and no hjert line; a
-    captured launch counts at each replay."""
+def test_line_counters_per_mode_table(narrow, replays, monkeypatch, card):
+    """Either table counts B x 22 lines a launch on the host, a captured
+    launch at each replay; ``hjert_lines`` is what the card counted, read
+    from each device that ran a damped launch (the narrow table's), never
+    from one that ran the flagship's Harris-only instantiation."""
     _, fwd, _ = narrow
     _, flagship = _forward(FLAGSHIP)
     assert voigt_cuda._hjert_count(fwd.modes) == 22
     assert voigt_cuda._hjert_count(flagship.modes) == 0
     n = max(replays, 1)
-    assert _count(fwd.modes, 800, replays, monkeypatch) == (n, n, n * 800 * 22, n * 800 * 22)
-    assert _count(flagship.modes, 100, replays, monkeypatch) == (n, n, n * 100 * 22, 0)
+    assert _count(fwd.modes, 800, replays, monkeypatch) == (n, n, n * 800 * 22)
+    assert _count(flagship.modes, 100, replays, monkeypatch) == (n, n, n * 100 * 22)
     # one counter per launch shape: a replay makes one call for each
-    assert voigt_cuda._fused_counter(True, 800, 22, 22) is voigt_cuda._fused_counter(True, 800, 22, 22)
+    assert voigt_cuda._fused_counter(True, 800, 22) is voigt_cuda._fused_counter(True, 800, 22)
+    card.update({0: n * 800 * 3, 1: 7})
+    assert voigt_cuda.hjert_lines == 0  # no damped launch: no device is read
+    voigt_cuda._counted(torch.device("cuda", 1), voigt_cuda._any_damped(flagship.modes))
+    assert voigt_cuda.hjert_lines == 0
+    voigt_cuda._counted(torch.device("cuda", 0), voigt_cuda._any_damped(fwd.modes))
+    assert voigt_cuda.hjert_lines == n * 800 * 3
+    card[0] += 800 * 2  # the card's next launch
+    assert voigt_cuda.hjert_lines == (n + 1) * 800 * 3 - 800
 
 
-def test_the_table_entry_counts_no_cube_launch(monkeypatch):
+def test_the_table_entry_counts_no_cube_launch(monkeypatch, card):
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
-    before = voigt_cuda.cube_launches, voigt_cuda.lines, voigt_cuda.hjert_lines
-    profiling.count_launch(voigt_cuda._fused_counter(False, 5, 22, 2))
-    assert (voigt_cuda.cube_launches, voigt_cuda.lines, voigt_cuda.hjert_lines) == (
-        before[0], before[1] + 110, before[2] + 10)
+    before = voigt_cuda.launches, voigt_cuda.cube_launches, voigt_cuda.lines
+    profiling.count_launch(voigt_cuda._fused_counter(False, 5, 22))
+    assert (voigt_cuda.launches, voigt_cuda.cube_launches, voigt_cuda.lines) == (
+        before[0] + 1, before[1], before[2] + 110)
+    card[0] = 10
+    voigt_cuda._counted(torch.device("cuda", 0), True)
+    assert voigt_cuda.hjert_lines == 10
+
+
+@pytest.mark.parametrize("window", ("1", "0"))
+def test_the_tmin_table_carries_the_damped_transitions_wing_threshold(window, monkeypatch):
+    """The narrow model's transitions are all MODE_HJERT, so ``win_tmin``
+    (held equal to the JAX package's) stays 0, and the kernels' ``tmin``
+    carries the wing threshold max(HJERT_WIN_TMIN, ln(amp_max 1e8)) that a
+    line given the Harris expansion takes, by the bound the Harris
+    transitions' thresholds use; 0 (plain Harris) with the window off.  The
+    flagship's table is its ``win_tmin`` as before."""
+    from mcalf_torch.models import torch_model as tm
+    from mcalf_torch.ops.faddeeva import HJERT_WIN_TMIN
+
+    monkeypatch.setenv("MCALF_TORCH_WINDOW", window)
+    model, fwd = _forward(CFG)
+    s = fwd.static
+    assert s.win_tmin == (0.0,) * 22 and tm.line_modes(s) == (voigt_cuda.MODE_HJERT,) * 22
+    tab = model.transition_table()
+    dnu_min = model.bounds_lo[tab["pidx"] + 2] * 1e5 * (1e8 / tab["wrest"])
+    amp_max = tm.TAU_CONST * 10.0 ** model.bounds_hi[tab["pidx"]] * tab["f"] / dnu_min
+    want = np.maximum(HJERT_WIN_TMIN, np.log(amp_max * 1e8)) if window == "1" else np.zeros(22)
+    # from the float32 prior box and line constants the forward model holds
+    np.testing.assert_allclose(fwd.tmin.double().numpy(), want, rtol=1e-6)
+    if window == "1":
+        assert (fwd.tmin > HJERT_WIN_TMIN).all()
+    _, flagship = _forward(FLAGSHIP)
+    assert flagship.tmin.tolist() == [float(np.float32(v)) for v in flagship.static.win_tmin]
+
+
+# ---- on a card: the fused kernel's per-line choice of Harris or hjert -------
+
+ROW_KINDS = ("seeded", "narrow_lines", "no_narrow_line")
+
+
+@pytest.fixture(scope="module")
+def narrow_cuda(narrow):
+    """The narrow model on the card, solo and as the benchmark's fleet
+    stacks it (8 problems of the same model), and per kind of rows 800 rows
+    with the reference's log L."""
+    from mcalf_torch.models import torch_model as tm
+    from mcalf_torch.models.batched import stack_problems
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model, _, ref = narrow
+    fwd = make_torch_forward(model, "cuda")
+    stacked = tm.make_stacked_forward(*stack_problems([model] * 8), "cuda")
+    rows = {}
+    for kind in ROW_KINDS:
+        if kind == "seeded":
+            u = np.random.default_rng(11).random((800, ref.ndim)).astype(np.float32)
+        else:
+            u = _rows(ref, kind == "narrow_lines", 800, seed=len(kind))
+        rows[kind] = (u, ref.loglike(u))
+    return fwd, stacked, rows
+
+
+def _on_card(narrow_cuda, kind, layout):
+    """(forward, cube rows on the card, prob or None, reference log L)."""
+    fwd, stacked, rows = narrow_cuda
+    u, want = rows[kind]
+    if layout == "solo":
+        return fwd, torch.from_numpy(u[:100]).cuda(), None, want[:100]
+    prob = torch.arange(8, device="cuda", dtype=torch.int32).repeat_interleave(100)
+    return stacked, torch.from_numpy(u).cuda(), prob, want
+
+
+def _cube(f, u, prob):
+    return f.loglike_cube(u) if prob is None else f.loglike_cube(u, prob)
+
+
+def _table_entry(f, u, prob):
+    """log L through the (B, T) table entry (fused_loglike) and its glue."""
+    from mcalf_torch.models import torch_model as tm
+
+    c = f.consts() if prob is None else tm.row_consts(f.consts(), prob)
+    dz = (u[:, c["u_zidx"]] - 0.5) * c["zspan"]
+    return tm.loglike_core(tm.cube_to_params_core(u, c), c, f.static, dz=dz, prob=prob)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ("solo", "stacked"))
+@pytest.mark.parametrize("kind", ROW_KINDS)
+def test_kernel_matches_the_reference_on_narrow_rows(narrow_cuda, kind, layout):
+    """The damped cube kernel, each MODE_HJERT line in the regime its own
+    damping gives it, within the port's bar of the float64 reference
+    (scipy's wofz on every line); the -inf pattern exact."""
+    f, u, prob, want = _on_card(narrow_cuda, kind, layout)
+    got = _cube(f, u, prob).double().cpu().numpy()
+    assert np.array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    err = np.abs(got[fin] - want[fin])
+    assert np.all(err <= 0.05 + 1e-5 * np.abs(want[fin])), err.max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ("solo", "stacked"))
+@pytest.mark.parametrize("kind", ROW_KINDS)
+def test_cube_entry_is_the_table_entry_on_narrow_rows(narrow_cuda, kind, layout):
+    """Both entries choose each line's regime by the same rule, so the cube
+    entry's log L is the table entry's bit for bit."""
+    f, u, prob, _ = _on_card(narrow_cuda, kind, layout)
+    assert torch.equal(_cube(f, u, prob), _table_entry(f, u, prob))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ("solo", "stacked"))
+@pytest.mark.parametrize("kind", ROW_KINDS)
+def test_kernel_matches_the_plain_twin_on_narrow_rows(narrow_cuda, kind, layout):
+    """Against the plain version (Algorithm 916 on every line of a
+    MODE_HJERT transition) on the same tables: rtol 1e-5, atol 0.05."""
+    from mcalf_torch.models import torch_model as tm
+
+    f, u, prob, _ = _on_card(narrow_cuda, kind, layout)
+    got = _cube(f, u, prob).double().cpu().numpy()
+    t = tm.cube_tables(f.consts(), f.static)
+    want = voigt_cuda.fused_loglike_cube_plain(
+        u, prob, t, half=f.static.half, asymm=f.static.asymmlike).double().cpu().numpy()
+    assert np.array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=0.05)

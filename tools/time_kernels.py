@@ -11,9 +11,10 @@ call (200 calls enqueued back to back on the host clock, before the
 synchronisation), on the flagship and the narrow flagship at B=100 and
 200, and ``voigt_tau`` alone at its posterior batch, B=1000; then the
 sampler's likelihood call, ``loglike_cube``, on the flagship as one seed
-(100 rows) and as the 8-seed fleet (800 stacked rows): the call's device
-time (every kernel it launches) and the ``fused_loglike`` kernel's alone
-on the same rows' line tables.  Run it against an older checkout (a ``git archive`` of it) and this
+(100 rows) and as the 8-seed fleet (800 stacked rows), and the same at b
+1-30 km/s (``civ_narrow``): the call's device time (every kernel it
+launches) and the ``fused_loglike`` kernel's alone on the same rows' line
+tables.  Run it against an older checkout (a ``git archive`` of it) and this
 one in turns, one after the other on the same card, to compare two
 versions of a kernel: the inputs are the same in both, made from a seed.
 Prints one line per cell, the card's name and power limit, and a JSON line
@@ -47,18 +48,25 @@ def _host_us(fn, n=200):
     return 1e6 * host / n
 
 
-def _likelihood_calls(smoke, smi) -> dict:
-    """The flagship's ``loglike_cube`` as one seed and as an 8-seed fleet:
-    the call's device time and the fused kernel's alone on its rows."""
+def _likelihood_calls(smoke, smi):
+    """The flagship's ``loglike_cube`` as one seed and as an 8-seed fleet,
+    and the same fit at b 1-30 km/s (``benchmark/configs/civ_narrow.cfg``,
+    every transition MODE_HJERT): the call's device time and the fused
+    kernel's alone on its rows."""
+    for name, brange in (("flagship", None), ("civ_narrow", [1.0, 30.0])):
+        yield from _likelihood_calls_of(smoke, smi, name, brange)
+
+
+def _likelihood_calls_of(smoke, smi, name, brange):
     import torch
 
-    from mcalf_torch.models import make_torch_forward
+    from mcalf_torch.models import AbsorptionModel, make_torch_forward
     from mcalf_torch.models import torch_model as tm
     from mcalf_torch.models.batched import stack_problems
     from mcalf_torch.ops import voigt_cuda
 
-    model = smoke._model("flagship")
-    out = {}
+    kw = dict(smoke.MODELS["flagship"], **({} if brange is None else {"brange": brange}))
+    model = AbsorptionModel.from_file(str(smoke.TESTDATA / "civ_mock_spec_multicomp.txt"), **kw)
     for Q in (1, 8):
         if Q == 1:
             fwd, prob = make_torch_forward(model, "cuda"), None
@@ -74,11 +82,11 @@ def _likelihood_calls(smoke, smi) -> dict:
         fused = lambda: voigt_cuda.fused_loglike(*args, half=s.half, asymm=False, prob=prob)
         rec = {"call_ms": [smoke._device_ms(call), smoke._device_ms(call)],
                "fused_ms": [smoke._device_ms(fused), smoke._device_ms(fused)]}
-        out[f"loglike_cube Q={Q} x B=100"] = rec
-        print(f"[time] flagship loglike_cube, {Q} x 100 rows: call device "
+        prefix = "" if name == "flagship" else f"{name} "
+        print(f"[time] {name} loglike_cube, {Q} x 100 rows: call device "
               f"{rec['call_ms'][0]:.4f}/{rec['call_ms'][1]:.4f} ms, fused_loglike alone "
               f"{rec['fused_ms'][0]:.4f}/{rec['fused_ms'][1]:.4f} ms  [{smi}]")
-    return out
+        yield f"{prefix}loglike_cube Q={Q} x B=100", rec
 
 
 def main() -> int:
@@ -126,7 +134,7 @@ def main() -> int:
                         f"{rec['fused_host_us']:.1f} us per call; " + text)
             out[f"{name} B={B}"] = rec
             print(f"[time] {name} B={B}: {text}  [{smi}]")
-    out.update(_likelihood_calls(smoke, smi))
+    out.update(dict(_likelihood_calls(smoke, smi)))
     print(json.dumps(out))
     return 0
 
