@@ -27,14 +27,6 @@ from mcalf_torch.ops import voigt_cuda
 TESTDATA = Path(__file__).parents[1] / "testdata"
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 _CIV = dict(
     fitlines=["CIV 1548", "CIV 1550"], specres=[8.0], Nrange=[12.0, 14.5],
     brange=[10.0, 40.0], zrange=[2.99, 3.01],

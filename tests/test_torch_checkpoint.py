@@ -33,14 +33,6 @@ from mcalf_torch.utils.checkpoint import (
 TESTDATA = Path(__file__).parents[1] / "testdata"
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _loglike(sigma=0.05, ndim=2):
     norm = -0.5 * ndim * np.log(2 * np.pi * sigma**2)
 

@@ -8,18 +8,9 @@ kernel must recover the analytic evidence (logZ = 0) and the 50/50 split.
 import math
 
 import numpy as np
-import pytest
 import torch
 
 from mcalf_torch.sampler import NSConfig, nested_sample, posterior_cluster_report
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _two_mode_loglike(sigma, ndim, w1=0.5):

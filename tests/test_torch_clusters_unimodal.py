@@ -18,14 +18,6 @@ from mcalf_torch.sampler.nested import nested_sample_stacked
 pytestmark = pytest.mark.slow
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_clustered_matches_unclustered_on_unimodal():
     sigma = 0.05
 

@@ -16,7 +16,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 sys.path.insert(0, str(Path(__file__).parents[1] / "tools"))
 
@@ -80,14 +79,9 @@ def test_summary_is_the_jax_studys(monkeypatch):
 
 
 def test_four_realizations_through_the_fleet():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        stats = {}
-        out = tstudy.run_coverage(n_real=4, nlive=20, max_samples=200, mesh=["cpu"],
-                                  fit_stats=stats)
-    finally:
-        torch.set_num_threads(n)
+    stats = {}
+    out = tstudy.run_coverage(n_real=4, nlive=20, max_samples=200, mesh=["cpu"],
+                              fit_stats=stats)
     assert set(out) == {"n_realizations", "ndim", "nlive", "converged_all", "rank_ks_p",
                         "coverage", "ranks_ok"}
     assert (out["n_realizations"], out["ndim"], out["nlive"]) == (4, 4, 20)

@@ -202,14 +202,9 @@ def models():
 @pytest.mark.parametrize("block", (0, 1))
 def test_each_block_is_the_one_process_fleet(fleet_run, models, block):
     tmp, _ = fleet_run
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        lo, hi = 2 * block, 2 * block + 2
-        gens = _default_generators(1, 4, "cpu")[lo:hi]
-        one = fit_many(models[lo:hi], NSConfig(**FLEET_CFG), mesh=["cpu"], generators=gens)
-    finally:
-        torch.set_num_threads(n)
+    lo, hi = 2 * block, 2 * block + 2
+    gens = _default_generators(1, 4, "cpu")[lo:hi]
+    one = fit_many(models[lo:hi], NSConfig(**FLEET_CFG), mesh=["cpu"], generators=gens)
     got = _load(tmp / f"fleet_{1 - block}.npz")  # the other process holds it too
     for k, v in one._asdict().items():
         want = v.numpy() if torch.is_tensor(v) else np.asarray(v)
@@ -277,12 +272,7 @@ def test_cli_seeds_over_two_processes(tmp_path):
     one = tmp_path / "one"
     one.mkdir()
     (one / "fit.cfg").write_text(CLI_CFG.format(testdata=TESTDATA, out=one))
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        assert main([str(one / "fit.cfg")]) == 0
-    finally:
-        torch.set_num_threads(n)
+    assert main([str(one / "fit.cfg")]) == 0
     names = sorted(p.relative_to(one) for p in one.rglob("*") if p.is_file()
                    and p.name != "fit.cfg")
     assert names and any("_s3" in str(p) for p in names) and any("_s4" in str(p) for p in names)
@@ -293,12 +283,7 @@ def test_cli_seeds_over_two_processes(tmp_path):
 def _one_process(one, text):
     one.mkdir()
     (one / "fit.cfg").write_text(text)
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        assert main([str(one / "fit.cfg")]) == 0
-    finally:
-        torch.set_num_threads(n)
+    assert main([str(one / "fit.cfg")]) == 0
     return sorted(p.relative_to(one) for p in one.rglob("*") if p.is_file()
                   and p.name != "fit.cfg")
 

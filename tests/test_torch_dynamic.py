@@ -19,14 +19,6 @@ from mcalf_torch.sampler import dynamic as tdyn
 from mcalf_torch.utils.checkpoint import load_state, save_state
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def gaussian_loglike(sigma, ndim, mu=0.5):
     norm = -0.5 * ndim * np.log(2 * np.pi * sigma**2)
 

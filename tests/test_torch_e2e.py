@@ -20,16 +20,6 @@ REPO = Path(__file__).parents[1]
 TESTDATA = REPO / "testdata"
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # Small tensors and several test processes sharing the cores: torch's
-    # intra-op thread pool only adds contention here.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 CFG = """
 [input]
 specfile = civ_mock_spec.txt

@@ -20,14 +20,6 @@ from mcalf_torch.sampler import NSConfig, finalize
 from mcalf_torch.sampler.nested import _nested_sample_device_stacked, nested_sample_stacked
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 NDIM, SIGMA, NSEEDS = 4, 0.08, 24
 
 

@@ -24,16 +24,6 @@ from mcalf_torch.ops import faddeeva as tfad
 PORT_VS_JAX = 1e-5
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # Small tensors and several test processes sharing the cores: torch's
-    # intra-op thread pool only adds contention here.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _rel(got, want):
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)

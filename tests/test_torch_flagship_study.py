@@ -11,7 +11,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 sys.path.insert(0, str(Path(__file__).parents[1] / "tools"))
 
@@ -54,13 +53,8 @@ def test_one_short_fleet_writes_the_jax_records(tmp_path, monkeypatch):
     config = tstudy.config
     monkeypatch.setattr(tstudy, "config", lambda *a: dataclasses.replace(
         config(*a), nlive=20, num_delete=10, max_samples=40, num_repeats=2))
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
     out = tmp_path / "study.jsonl"
-    try:
-        summary = tstudy.main(str(out), "fixedk544", "cpu", log=lambda *a: None)
-    finally:
-        torch.set_num_threads(n)
+    summary = tstudy.main(str(out), "fixedk544", "cpu", log=lambda *a: None)
     recs = [json.loads(line) for line in out.read_text().splitlines()]
     assert [r["seed"] for r in recs] == [63, 64]
     for r in recs:

@@ -51,14 +51,6 @@ _CIV = dict(
 )
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _model(spec="civ_mock_spec.txt", ncomp=(1, 1)):
     return AbsorptionModel.from_file(str(TESTDATA / spec), ncomp=ncomp, **_CIV)
 

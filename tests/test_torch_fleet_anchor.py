@@ -7,8 +7,6 @@ testdata/civ_mock_spec.txt integrates to 4985.51, tools/truth_anchor.py)."""
 from pathlib import Path
 
 import numpy as np
-import pytest
-import torch
 
 from mcalf_torch.models import AbsorptionModel
 from mcalf_torch.parallel import fit_many
@@ -16,14 +14,6 @@ from mcalf_torch.sampler import NSConfig
 
 TESTDATA = Path(__file__).parents[1] / "testdata"
 QUADRATURE_LOGZ = 4985.51
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_fit_many_four_seeds_on_the_anchor():

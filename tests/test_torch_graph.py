@@ -42,14 +42,6 @@ NDIM, B, R = 5, 16, 10
 CFG = NSConfig(ndim=NDIM, num_repeats=R).resolved()
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _gauss(mus, sig=0.1):
     """Stacked isotropic Gaussians, problem q centred on mus[q]; each row's
     value is computed alone (a sum over columns in a fixed order), so it

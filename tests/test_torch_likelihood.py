@@ -34,16 +34,6 @@ from mcalf_torch.ops import voigt_cuda
 TESTDATA = Path(__file__).parents[1] / "testdata"
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # Small tensors and several test processes sharing the cores: torch's
-    # intra-op thread pool only adds contention here.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _flagship_kwargs():
     cp = readconfig(str(TESTDATA / "fit.cfg"))
     return dict(

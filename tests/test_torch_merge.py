@@ -15,14 +15,6 @@ from mcalf_torch.sampler import merge as tmerge
 from mcalf_torch.sampler.merge import merge_results
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _synthetic_run(seed, nlive=40, ndead=300, cap=400, ndim=3, birth_floor=None):
     """Arrays of the NSResults layout (dead buffer of ``cap`` rows, ``ndead``
     filled, then ``nlive`` live rows), made from a seed with numpy: sorted

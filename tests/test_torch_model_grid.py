@@ -7,8 +7,6 @@ import importlib.util
 import re
 from pathlib import Path
 
-import torch
-
 EXAMPLE = Path(__file__).parents[1] / "examples" / "model_grid_torch.py"
 
 
@@ -16,13 +14,8 @@ def test_model_grid_on_the_cpu(capsys):
     spec = importlib.util.spec_from_file_location("model_grid_torch", EXAMPLE)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        assert mod.main(["--device", "cpu", "--nlive", "16", "--max-samples", "160",
-                         "--num-repeats", "3"]) == 0
-    finally:
-        torch.set_num_threads(n)
+    assert mod.main(["--device", "cpu", "--nlive", "16", "--max-samples", "160",
+                     "--num-repeats", "3"]) == 0
     out = capsys.readouterr().out
     rows = re.findall(r"^\s+(\d)\s+\|\s+([-\d.]+) \+/-\s+([\d.]+)\s+\|\s+([-\d.]+)$", out, re.M)
     assert [r[0] for r in rows] == ["1", "2"]

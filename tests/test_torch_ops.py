@@ -29,16 +29,6 @@ U_HARRIS = np.concatenate(
 A_HARRIS = (1e-7, 1e-5, 1e-4, 3e-4, 1e-3)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # Small tensors and several test processes sharing the cores: torch's
-    # intra-op thread pool only adds contention here.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _close(got, want, rtol=RTOL):
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)

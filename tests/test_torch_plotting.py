@@ -76,17 +76,6 @@ FIXTURES = {
 }
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # Several test processes share the cores: torch's intra-op thread pool
-    # only adds contention here (test_overlays_independent_of_threads holds
-    # the overlays' bits across thread counts).
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _config(name, tmp, text):
     text = text.replace("datadir = testdata/", f"datadir = {TESTDATA}/")
     text = text.replace("outdir = testdata/output/", f"outdir = {tmp}/")

@@ -34,14 +34,6 @@ MODELS = {"flagship": dict(_CIV, brange=[10.0, 40.0]),
 RTOL, ATOL = 1e-5, 0.05
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _rows(model, B, seed):
     """Physical parameters inside the prior box, as bench.py draws them."""
     lo, hi = (np.asarray(b, np.float64) for b in zip(*model.bounds))

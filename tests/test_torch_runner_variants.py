@@ -30,14 +30,6 @@ REPO = Path(__file__).parents[1]
 TESTDATA = REPO / "testdata"
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 CFG = """
 [input]
 specfile = {specfile}

@@ -30,16 +30,6 @@ SIGMA, NDIM = 0.05, 2
 NORM = -0.5 * NDIM * math.log(2 * math.pi * SIGMA**2)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # Small tensors and several test processes sharing the cores: torch's
-    # intra-op thread pool only adds contention here.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def jax_gauss(u):
     r2 = jnp.sum((u - 0.5) ** 2, axis=-1)
     return (NORM - 0.5 * r2 / SIGMA**2).astype(jnp.float32)

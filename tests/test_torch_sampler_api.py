@@ -39,14 +39,6 @@ REPO = Path(__file__).parents[1]
 TESTDATA = REPO / "testdata"
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _gauss(ndim=4, sigma=0.08):
     norm = -0.5 * ndim * math.log(2 * math.pi * sigma**2)
 

@@ -15,7 +15,6 @@ from pathlib import Path
 
 import jax
 import numpy as np
-import pytest
 import torch
 
 from mcalf_tpu.models import AbsorptionModel as JaxAbsorptionModel
@@ -33,16 +32,6 @@ MODEL = dict(
     zrange=[2.99, 3.01],
 )
 SAMPLER = dict(ndim=4, nlive=50, max_samples=3000, num_repeats=8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # Small tensors and several test processes sharing the cores: torch's
-    # intra-op thread pool only adds contention here.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_one_component_fit_matches_jax():

@@ -42,14 +42,6 @@ from mcalf_torch.sampler import nested as tn
 TESTDATA = Path(__file__).parents[1] / "testdata"
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _gaussian(ndim, sigma, mu=0.5):
     norm = -0.5 * ndim * math.log(2 * math.pi * sigma**2)
 

@@ -52,16 +52,6 @@ MODELS = {
 }
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # Small tensors and several test processes sharing the cores: torch's
-    # intra-op thread pool only adds contention here.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _models(name):
     kw = MODELS[name]
     return JaxAbsorptionModel.from_file(MULTICOMP, **kw), AbsorptionModel.from_file(MULTICOMP, **kw)

@@ -26,7 +26,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 REPO = Path(__file__).parents[1]
 sys.path.insert(0, str(REPO / "tools"))
@@ -78,14 +77,6 @@ def _jax_loglike(brange):
 def _port_loglike(brange):
     model = ta.make_model(brange=brange)
     return ta.torch_loglike(make_torch_forward(model, "cpu")), model
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("brange", BRANGES)

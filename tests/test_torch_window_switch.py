@@ -42,14 +42,6 @@ MODELS = {
 }
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _models(name):
     spec = str(TESTDATA / "civ_mock_spec_multicomp.txt")
     return (JaxAbsorptionModel.from_file(spec, **MODELS[name]),
