@@ -6,12 +6,13 @@ Phases, each printing lines tagged with its number:
 
 1. device: requires CUDA (exits non-zero without it) and prints the card's
    name and power limit as nvidia-smi gives them;
-2. build: compiles both kernels (csrc/fused_loglike.cu, csrc/voigt_tau.cu)
-   with one nvcc call and prints ptxas's registers and spills per kernel
-   instantiation (each kernel's Harris-only and damped one, the fused
-   kernel's each from (B, T) tables and from the unit cube) and of the
-   functions they call out of line, and the fused kernel's beside their
-   48 and 80 registers before the problem axis;
+2. build: compiles the kernels (csrc/fused_loglike.cu, csrc/voigt_tau.cu
+   and the slice sampler's csrc/slice_step.cu) with one nvcc call and
+   prints ptxas's registers and spills per kernel instantiation (each
+   physics kernel's Harris-only and damped one, the fused kernel's each
+   from (B, T) tables and from the unit cube; slice_propose and
+   slice_update) and of the functions they call out of line, and the fused
+   kernel's beside their 48 and 80 registers before the problem axis;
 3. fused kernel vs plain, the same inputs at full width, B in {100, 37, 1},
    a prior-spread and a z-clustered batch, log L to rtol 1e-5 / atol 0.05
    with the -inf pattern exact (the JAX package's fused-vs-XLA tolerance):
@@ -64,8 +65,10 @@ Phases, each printing lines tagged with its number:
 6. the slices: ``mcalf_torch.cli.main`` on a copy of testdata/fit.cfg at
    full width (ndim 34, nlive 200, B=100, canon_layout, the kernel on),
    depth cut by max_samples, then the same on the narrow flagship; checks
-   the chain files, logZ and that every likelihood batch went through the
-   fused kernel;
+   the chain files, logZ, that every likelihood batch went through the
+   fused kernel and that every slice iteration's bookkeeping went through
+   the slice kernels (``slice_cuda.launches``, set to 0 just before the
+   fit, = the loop's iterations);
 7. the tau path: the narrow slice's equal-weight posterior through
    ``reconstruct``, ``chi2`` and a ``conv_mode='wrap'`` forward's
    ``loglike`` on the card, against the plain versions on the CPU;
@@ -94,10 +97,12 @@ Phases, each printing lines tagged with its number:
 10. the fleet at full width: ``mcalf_torch.parallel.fit_many`` on 4 seeds
    (43-46) of phase 6's flagship slice, one fused launch per stacked
    likelihood call; seed 43's ``.stats`` and ``_equal_weights.txt``, written
-   as the runner writes a fit's, byte for byte phase 6's; the fleet's
+   as the runner writes a fit's, byte for byte phase 6's; one
+   ``slice_update`` launch per stacked slice iteration; the fleet's
    evals/s beside phase 6's;
 11. the captured slice loop against the eager one on phase 6's slice and
-   phase 10's fleet, in turns, then one profiled outer step of each;
+   phase 10's fleet, in turns, then one profiled outer step of each (both
+   loops run the slice kernels: phase 17 holds those to the torch ops);
 12. the plot: ``mcalf_torch.cli.main`` with ``dofit = False``, ``doplot =
    True`` on phase 6's flagship chain files: exactly one ``voigt_tau``
    launch for the 100 posterior-draw overlays (B=100, T=22, P=1999), every
@@ -160,7 +165,20 @@ Phases, each printing lines tagged with its number:
    43), and ``nested_sample_device`` on tests/test_torch_evidence_seeds.py's
    Gaussian, 8 seeds as one fleet, each member's logZ its solo run's, the
    mean within max(3 sem, 0.08) of 0; (e) each member of phase 15 (b)'s
-   ``'wrap'`` fleet bit for bit its solo captured run.
+   ``'wrap'`` fleet bit for bit its solo captured run;
+17. the slice kernels (``sampler.nested._slice_step`` on the card: the
+   ``slice_propose`` and ``slice_update`` launches around the likelihood
+   call) against the torch ops that define them (``_slice_step_ops``) on
+   the same carry, at the flagship's widths (ndim 34, B = 100, 816 passes)
+   as one problem and as the 8-problem fleet, 16 iterations in a row
+   with the loop reaching its cap: every carry tensor, ``n_like``,
+   ``it_total``, the active-row counter and the rows handed to the
+   likelihood bit for bit, the bracket ends by value (a zero end's sign
+   reaches no proposal), on carries with NaN and sub-1e-12 direction
+   entries, points on the cube's faces and log L at the constraint and
+   -inf; then one iteration's bookkeeping timed both ways with a
+   likelihood that launches nothing (device time by graph replay, call
+   times) beside the bound of the bytes the kernels move.
 
 Phase 5 also prints, at B=100, a census bound from the port's own FLOP
 count of both plain versions (``mcalf_torch.utils.flops``, run on the CPU)
@@ -169,7 +187,8 @@ beside the branch-aware bound.
 Then one JSON line with the kernels' launch counts, errors, device and
 call times and bounds (at the narrow flagship, B=100; the tau kernel's at
 every timed model and batch under ``by_batch``; the stacked launch under
-``stacked``; mode 0 under ``mode0``; the unit-cube entry under ``cube``),
+``stacked``; mode 0 under ``mode0``; the unit-cube entry under ``cube``;
+the slice kernels' at Q = 1 and 8 problems of 100 rows),
 and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises.  The port
 must not import jax or mcalf_tpu: checked at the end.
@@ -272,12 +291,16 @@ def ptxas_counts(log: str):
     """(function, line) for ptxas's register and spill lines: each kernel's
     Harris-only and damped instantiation (the tau kernel's each with and
     without the problem axis, the fused kernel's each from tables and from
-    the unit cube), and the device functions they call out of line."""
+    the unit cube), the two slice kernels, and the device functions they
+    call out of line."""
     name = "?"
     for ln in log.splitlines():
         if "entry function" in ln or "Function properties for" in ln:
             m = re.search(r"(voigt_tau_kernel|fused_loglike_kernel)ILb([01])E(?:Lb([01])E)?", ln)
-            if m:
+            k = re.search(r"slice_(propose|update)_kernel", ln)
+            if k:
+                name = k[0]
+            elif m:
                 name = (f"{m[1]}<{'damped' if m[2] == '1' else 'harris'}"
                         f"{(', cube' if m[1].startswith('fused') else ', prob') if m[3] == '1' else ''}>")
             elif "wofz_real_916" in ln:
@@ -1056,12 +1079,13 @@ def _drive_cli(cfg: Path, *argv) -> dict:
     ran (calls of ``TorchForward.loglike_cube``), the stacked likelihood
     calls of a fleet (``StackedForward.loglike_cube``) and their rows.  A
     call counts when the card runs it (``utils.profiling.count_launch``): a
-    call captured in the slice loop's CUDA graph counts at each replay.  An
-    exception of the fit passes through, the counts up to it in its
-    ``drive`` attribute."""
+    call captured in the slice loop's CUDA graph counts at each replay; so
+    does a ``slice_update`` launch (``slice_cuda.launches``, set to 0 just
+    before too).  An exception of the fit passes through, the counts up to
+    it in its ``drive`` attribute."""
     from mcalf_torch import cli, runner
     from mcalf_torch.models.torch_model import StackedForward, TorchForward
-    from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.ops import slice_cuda, voigt_cuda
     from mcalf_torch.sampler import graph
     from mcalf_torch.utils.profiling import count_launch
 
@@ -1098,6 +1122,7 @@ def _drive_cli(cfg: Path, *argv) -> dict:
     StackedForward.loglike_cube = counted_stacked
     try:
         voigt_cuda.launches = 0
+        slice_cuda.launches = 0
         graph.reset_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1110,6 +1135,7 @@ def _drive_cli(cfg: Path, *argv) -> dict:
             torch.cuda.synchronize()
             out["wall"] = time.perf_counter() - t0
             out["launches"] = voigt_cuda.launches
+            out["slice_launches"] = slice_cuda.launches
             out["graph"] = dict(graph.stats)
     finally:
         runner.run_fit, runner.dynamic_sample = run_fit, dynamic_sample
@@ -1150,6 +1176,10 @@ def phase_slice(tmp: Path, name: str, brange=None) -> dict:
     if launches < run["batches"] or launches < batches or g["captures"] != 1:
         raise AssertionError(f"{launches} kernel launches, {run['batches']} batches run, "
                              f"{batches} with a chain to move, {g['captures']} graphs")
+    slices, iterations = run["slice_launches"], g["warmups"] + g["iterations"]
+    if slices != iterations:
+        raise AssertionError(f"{name}: {slices} slice_update launches for {iterations} slice "
+                             "iterations run (the chord bracket on the card takes the kernels)")
     print(
         f"[6 slice] {name} ndim=34 nlive=200 B=100 num_repeats="
         f"{SLICE_NUM_REPEATS} max_samples={SLICE_MAX_SAMPLES}: "
@@ -1162,9 +1192,10 @@ def phase_slice(tmp: Path, name: str, brange=None) -> dict:
         f"{batches} with a chain to move; {g['replays'] / res.n_iter:.2f} replays and "
         f"{g['reads'] / res.n_iter:.2f} flag reads per outer step; "
         f"{wall / (launches - 1) * 1e3:.4f} ms per slice iteration run; "
+        f"slice_update launches {slices} = slice iterations run; "
         f"equal-weight rows {posterior.shape[0]}"
     )
-    return {"launches": launches, "wall": wall, "n_like": res.n_like,
+    return {"launches": launches, "slice_launches": slices, "wall": wall, "n_like": res.n_like,
             "posterior": posterior, "base": base, "iterations": launches - 1,
             "graph": g, "steps": res.n_iter}
 
@@ -1575,12 +1606,13 @@ def _flagship_setup(out: Path):
 def phase_fleet(tmp: Path, smi: str, flagship: dict) -> dict:
     """Phase 10: ``fit_many`` on four seeds of phase 6's flagship slice,
     the first phase 6's own; one fused launch per stacked likelihood call
-    run (each replayed iteration one call); seed 43's files, written as the
-    runner writes a fit's, byte for byte phase 6's."""
+    run (each replayed iteration one call) and one ``slice_update`` launch
+    per stacked slice iteration; seed 43's files, written as the runner
+    writes a fit's, byte for byte phase 6's."""
     from mcalf_torch import runner
     from mcalf_torch.models import make_torch_forward
     from mcalf_torch.models.torch_model import StackedForward
-    from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.ops import slice_cuda, voigt_cuda
     from mcalf_torch.parallel import fit_many
     from mcalf_torch.sampler import graph
     from mcalf_torch.sampler.nested import unstack_results
@@ -1597,6 +1629,7 @@ def phase_fleet(tmp: Path, smi: str, flagship: dict) -> dict:
     StackedForward.loglike_cube = counted
     try:
         voigt_cuda.launches = 0
+        slice_cuda.launches = 0
         graph.reset_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1604,6 +1637,7 @@ def phase_fleet(tmp: Path, smi: str, flagship: dict) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = voigt_cuda.launches
+        slices = slice_cuda.launches
         g = dict(graph.stats)
     finally:
         StackedForward.loglike_cube = loglike_cube
@@ -1622,13 +1656,17 @@ def phase_fleet(tmp: Path, smi: str, flagship: dict) -> dict:
             raise AssertionError(f"fleet: seed 43's {suffix} differs from phase 6's flagship slice")
     rate, solo = n_like / wall, flagship["n_like"] / flagship["wall"]
     iters = run_calls - 1  # the first call evaluates the four initial live sets
+    if slices != iters:
+        raise AssertionError(f"fleet: {slices} slice_update launches for {iters} stacked slice "
+                             "iterations run")
     steps = max(r.n_iter for r in members)
     print(
         f"[10 fleet] fit_many, seeds {list(FLEET_SEEDS)} of the flagship slice (ndim 34, nlive "
         f"200, B=100, {SLICE_NUM_REPEATS} repeats, max_samples {SLICE_MAX_SAMPLES}): wall "
         f"{wall:.2f} s, {n_like} evaluations ({[r.n_like for r in members]}) of {rows} rows "
         f"evaluated, {iters} stacked slice iterations run (1 warm-up + {g['replays']} replays) "
-        f"+ 1 initial call = {launches} fused launches, {g['replays'] / steps:.2f} replays and "
+        f"+ 1 initial call = {launches} fused launches ({slices} slice_update launches), "
+        f"{g['replays'] / steps:.2f} replays and "
         f"{g['reads'] / steps:.2f} flag reads per outer step, {wall / iters * 1e3:.4f} ms per "
         f"stacked iteration; logZ {[round(float(r.logz), 3) for r in members]}; seed 43's "
         f".stats and _equal_weights.txt byte for byte phase 6's"
@@ -1638,8 +1676,8 @@ def phase_fleet(tmp: Path, smi: str, flagship: dict) -> dict:
         f"{solo:.4g} evals/s (phase 6, {flagship['wall']:.2f} s, {flagship['launches']} "
         f"launches): {rate / solo:.3f}x  [{smi}]"
     )
-    return {"launches": launches, "wall": wall, "n_like": n_like, "rate": rate,
-            "solo_rate": solo, "members": members, "iterations": iters, "graph": g}
+    return {"launches": launches, "slice_launches": slices, "wall": wall, "n_like": n_like,
+            "rate": rate, "solo_rate": solo, "members": members, "iterations": iters, "graph": g}
 
 
 #: seconds of idle time at each end of a profiled window
@@ -3007,6 +3045,181 @@ def phase_wrap_solo(smi: str, wrap: dict) -> dict:
     return dict(members_are_solo=True, wall=wall)
 
 
+# ---- phase 17: the slice kernels against the torch ops ----
+
+#: phase 17: the flagship's chains a problem, parameters and passes
+SLICE_CHECK_B, SLICE_CHECK_NDIM, SLICE_CHECK_PASSES = 100, 34, 816
+#: phase 17: iterations compared in a row; the loop reaches its cap at the last four
+SLICE_CHECK_ITERATIONS = 16
+
+
+def _slice_loop(Q: int, seed: int, table_ll: bool):
+    """A chord slice loop on the card at phase 17's widths: (fixed inputs,
+    carry, the likelihood's state).  Its pool holds sub-1e-12 entries,
+    signed zeros, axis directions and NaN directions (a failed Cholesky
+    factor), its points lie on the cube's faces at random, and a third of
+    the directions are axis directions with the bracket's low end at the
+    face (r = 0 then proposes a point on it).  With ``table_ll`` the
+    likelihood reads log L from one of four (Q, B) tables, the one
+    ``state["k"]`` names, with values at the constraint and -inf, and keeps
+    the rows it was handed in ``state["seen"]``; else it returns one fixed
+    table and launches nothing."""
+    from mcalf_torch.sampler import NSConfig
+    from mcalf_torch.sampler import nested as tn
+
+    dev = torch.device("cuda")
+    B, ndim, nrep = SLICE_CHECK_B, SLICE_CHECK_NDIM, SLICE_CHECK_PASSES
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    cfg = NSConfig(ndim=ndim, nlive=2 * B, num_delete=B, num_repeats=nrep).resolved()
+    n = torch.randn((Q, nrep, B, ndim), generator=g, device=dev)
+    pools = 0.3 * n / n.norm(dim=-1, keepdim=True)
+    for val in (1e-13, -1e-13, 0.0, -0.0):
+        pools = torch.where(rand(*pools.shape) < 0.02, val, pools)
+    eye = torch.eye(ndim, device=dev)
+    axis = rand(Q, nrep, B) < 0.15
+    pools[axis] = eye[torch.randint(0, ndim, (int(axis.sum()),), generator=g, device=dev)]
+    pools[rand(Q, nrep, B) < 0.03] = float("nan")
+    lstar = -0.5 + 0.2 * torch.randn((Q, 1), generator=g, device=dev)
+    tables = torch.randn((4, Q, B), generator=g, device=dev)
+    pick = rand(4, Q, B)
+    tables = torch.where(pick < 0.15, lstar.expand(4, Q, B), tables)
+    tables = torch.where((pick >= 0.15) & (pick < 0.25), -math.inf, tables)
+    state = {"k": 0, "seen": []}
+    if table_ll:
+        def loglike_rows(u, prob):
+            state["seen"].append(u.clone())
+            return tables[state["k"]].reshape(-1)
+    else:
+        flat = tables[0].reshape(-1).contiguous()
+
+        def loglike_rows(u, prob):
+            return flat
+    gens = [torch.Generator(device=dev).manual_seed(seed + 1 + q) for q in range(Q)]
+    x = tn._fixed(loglike_rows, gens, pools, lstar.reshape(Q), list(range(Q)), cfg)
+    x = x._replace(active=torch.zeros((Q, B), dtype=torch.int64, device=dev))
+    u = rand(Q, B, ndim)
+    u = torch.where(rand(Q, B, ndim) < 0.05, 0.0, u)
+    u = torch.where(rand(Q, B, ndim) < 0.05, 1.0, u)
+    c = tn._init_loop_carry(u, torch.randn((Q, B), generator=g, device=dev), x)
+    k = torch.randint(0, ndim, (Q, B), generator=g, device=dev)
+    face = rand(Q, B) < 0.3
+    c.d.copy_(torch.where(face[..., None], eye[k], c.d))
+    lo, hi = tn._bracket(c.u, c.d)
+    c.lo.copy_(torch.where(face, 0.0 - torch.gather(c.u, 2, k[..., None])[..., 0], lo))
+    c.hi.copy_(hi)
+    c.it_pass.copy_(torch.randint(0, x.max_shrink, (Q, B), generator=g, device=dev,
+                                  dtype=torch.int32))
+    passes = torch.randint(0, nrep + 1, (Q, B), generator=g, device=dev, dtype=torch.int32)
+    if Q > 1:
+        passes[Q - 1] = nrep  # a problem with every pass made
+    c.passes.copy_(passes)
+    c.it_total.fill_(x.total_cap - SLICE_CHECK_ITERATIONS + 4)
+    return x, c, state
+
+
+def _same_tensor(a: torch.Tensor, b: torch.Tensor, by_value: bool) -> bool:
+    """Bit for bit (``by_value``: -0 == +0), a NaN matching a NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False
+    a, b = a[~na], b[~nb]
+    return torch.equal(a, b) if by_value else torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _slice_bytes(Q: int) -> int:
+    """Bytes the two slice kernels move in one iteration where every chain
+    accepts and starts a pass: slice_propose reads u, d and writes u_eval;
+    slice_update reads u, d and the pool's row and writes u and d; per row
+    the bracket, draw, passes, flags, t, log L and the active count."""
+    rows = Q * SLICE_CHECK_B
+    return 4 * rows * SLICE_CHECK_NDIM * 8 + rows * 76
+
+
+def phase_slice_kernels(smi: str) -> dict:
+    """Phase 17: the slice kernels against ``_slice_step_ops`` on the same
+    carry, then both timed (see the module's docstring)."""
+    from mcalf_torch.ops import slice_cuda
+    from mcalf_torch.sampler import nested as tn
+
+    out = {}
+    for Q in (1, FLEET_Q):
+        x, c, state = _slice_loop(Q, 1700 + Q, table_ll=True)
+        B = c.logl.shape[1]
+        slice_cuda.launches = 0
+        moved = 0
+        for it in range(SLICE_CHECK_ITERATIONS):
+            for q in range(Q):
+                torch.rand((B,), generator=x.gens[q], device=c.u.device, out=x.r[q])
+            state["k"] = it % 4
+            c_ops, act_ops = type(c)(*(t.clone() for t in c)), x.active.clone()
+            state["seen"].clear()
+            tn._slice_step_ops(c_ops, x._replace(active=act_ops))
+            seen_ops = state["seen"][:]
+            state["seen"].clear()
+            before = c.u.clone()
+            tn._slice_step(c, x)
+            torch.cuda.synchronize()
+            for name, a, b in zip(c._fields, c, c_ops):
+                if not _same_tensor(a, b, by_value=name in ("lo", "hi")):
+                    raise AssertionError(f"[17] Q={Q} iteration {it}: the kernels' {name} "
+                                         "differs from the torch ops'")
+            if not torch.equal(x.active, act_ops):
+                raise AssertionError(f"[17] Q={Q} iteration {it}: the active rows differ")
+            if not (len(state["seen"]) == len(seen_ops) == 1
+                    and _same_tensor(state["seen"][0], seen_ops[0], by_value=False)):
+                raise AssertionError(f"[17] Q={Q} iteration {it}: the rows handed to the "
+                                     "likelihood differ")
+            moved += int((c.u != before).any(dim=-1).sum())
+        launches = slice_cuda.launches
+        if launches != SLICE_CHECK_ITERATIONS or int(c.it_total) != x.total_cap + 4:
+            raise AssertionError(f"[17] Q={Q}: {launches} slice_update launches, it_total "
+                                 f"{int(c.it_total)}, for {SLICE_CHECK_ITERATIONS} iterations")
+
+        # one iteration's bookkeeping, with a likelihood that launches nothing
+        xk, ck, _ = _slice_loop(Q, 1800 + Q, table_ll=False)
+        xo, co, _ = _slice_loop(Q, 1800 + Q, table_ll=False)
+        ck.it_total.zero_()
+        co.it_total.zero_()
+
+        def kernels():
+            tn._slice_step(ck, xk)
+
+        def ops():
+            tn._slice_step_ops(co, xo)
+
+        rec = dict(rows=Q * B, check_launches=launches, moved_rows=moved)
+        rec["ms"], rec["plain_device_ms"] = _device_ms(kernels), _device_ms(ops)
+        rec["call_ms"], rec["plain_ms"] = _median_ms(kernels), _median_ms(ops)
+        rec["propose_ms"] = _profiled_ms(kernels, "slice_propose")
+        rec["update_ms"] = _profiled_ms(kernels, "slice_update")
+        rec["bytes"] = _slice_bytes(Q)
+        rec["bound_ms"], rec["bound_by"] = rec["bytes"] / PEAK_BYTES * 1e3, "bytes"
+        out[f"Q={Q}"] = rec
+        print(f"[17 slice kernels] Q={Q} x B={B}, ndim {SLICE_CHECK_NDIM}, {SLICE_CHECK_PASSES} "
+              f"passes: {SLICE_CHECK_ITERATIONS} iterations (the last 4 past the cap), "
+              f"{moved} row moves, every carry tensor, n_like, it_total, the active rows and "
+              f"the likelihood's rows bit for bit the torch ops' (the bracket ends by value); "
+              f"slice_update launches {launches}; bookkeeping an iteration: kernels "
+              f"{rec['ms'] * 1e3:.2f} us device (slice_propose {_us(rec['propose_ms'])}, "
+              f"slice_update {_us(rec['update_ms'])}), {rec['call_ms'] * 1e3:.2f} us a call; "
+              f"torch ops {rec['plain_device_ms'] * 1e3:.2f} us device, "
+              f"{rec['plain_ms'] * 1e3:.2f} us a call; bound {rec['bound_ms'] * 1e3:.3f} us "
+              f"({rec['bytes']} bytes)  [{smi}]")
+    return out
+
+
+def _us(ms) -> str:
+    return "not in the trace" if ms is None else f"{ms * 1e3:.2f} us"
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3047,6 +3260,7 @@ def main() -> int:
         wall16 = time.perf_counter() - t16
         print(f"[16 total] phase 16 wall {wall16:.1f} s of its {PHASE16_BUDGET_S:.0f} s budget  "
               f"[{smi}]")
+        slice_kernels = phase_slice_kernels(smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t_start
@@ -3126,6 +3340,27 @@ def main() -> int:
             "loop_profiles": {f"{name} {k[8:]}": {m: rec[k][m] for m in (
                 "launches_per_iter", "graph_launches_per_iter", "syncs_per_iter", "busy_share")}
                 for name, rec in loops.items() for k in rec if k.startswith("profile")},
+        },
+        {
+            "name": "slice_propose+slice_update",
+            "route": "cuda",
+            "source": "mcalf_torch/csrc/slice_step.cu",
+            "replaces": "the torch ops of mcalf_torch/sampler/nested.py::_slice_step_ops "
+                        "(no TPU kernel: XLA fuses the JAX package's slice loop body)",
+            # phase 6: one slice_update launch per slice iteration of each
+            # slice, counted from 0 by the main path's own run; phase 10:
+            # per stacked iteration of the fleet
+            "launches": flagship["slice_launches"],
+            "launches_narrow_slice": narrow["slice_launches"],
+            "launches_fleet": fleet["slice_launches"],
+            # phase 17: against the torch ops, and one iteration's
+            # bookkeeping timed (ms device, call_ms, plain_ms a call of the
+            # torch ops, bound_ms the bytes at the peak) at Q problems of 100
+            **{k: v for k, v in slice_kernels[f"Q={FLEET_Q}"].items()},
+            "Q1": slice_kernels["Q=1"],
+            "max_abs_err": 0.0,
+            "library_ms": None,
+            "at": f"{FLEET_Q} x {SLICE_CHECK_B} chains, ndim {SLICE_CHECK_NDIM}",
         },
         {
             "name": "voigt_tau",

@@ -18,7 +18,9 @@ evaluated rows that were masked, the seconds of each phase span of the
 fit, one line per name, and the fit's fused-kernel launches beside those
 of them that built their line tables from the unit cube, with the (row,
 transition) pairs they evaluated (``lines``) and those of them that took
-the full damped Voigt function (``hjert_lines``).  Plotting
+the full damped Voigt function (``hjert_lines``), and the slice iterations
+whose bookkeeping ran as the slice kernels (``slice_cuda.launches``, one
+launch of ``slice_update`` each).  Plotting
 (:mod:`mcalf_torch.plotting`) reads the chain files back, so
 ``dofit``/``doplot`` can run in separate invocations; with several spectra
 it plots each.
@@ -85,12 +87,12 @@ def _run(args, configpars) -> int:
         return _fit_and_plot(args, configpars)
     # --debug counts the slice loop's active rows (printed per seed) and
     # prints the seconds of each phase span of this fit
-    from mcalf_torch.ops import voigt_cuda
+    from mcalf_torch.ops import slice_cuda, voigt_cuda
     from mcalf_torch.utils import profiling
 
     before = {k: len(v) for k, v in profiling.get_timings().items()}
     launches = (voigt_cuda.launches, voigt_cuda.cube_launches, voigt_cuda.lines,
-                voigt_cuda.hjert_lines)
+                voigt_cuda.hjert_lines, slice_cuda.launches)
     was = profiling.enable_counters(True)
     try:
         return _fit_and_plot(args, configpars)
@@ -103,7 +105,8 @@ def _run(args, configpars) -> int:
         print(f"[DEBUG]: fused-kernel launches {voigt_cuda.launches - launches[0]}, "
               f"{voigt_cuda.cube_launches - launches[1]} of them from the unit cube; "
               f"lines {voigt_cuda.lines - launches[2]}, "
-              f"hjert_lines {voigt_cuda.hjert_lines - launches[3]}")
+              f"hjert_lines {voigt_cuda.hjert_lines - launches[3]}; "
+              f"slice_update launches {slice_cuda.launches - launches[4]}")
 
 
 def _fit_and_plot(args, configpars) -> int:

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mcalf_torch.ops import slice_cuda
 from mcalf_torch.sampler.graph import count_rows
 from mcalf_torch.utils.profiling import counters_enabled, phase_timer
 
@@ -654,6 +655,9 @@ class _Fixed(NamedTuple):
     #: the loop started (one add per iteration; the sum over a problem's
     #: chains once per block); else None
     active: Optional[torch.Tensor] = None
+    #: on a CUDA device with the chord bracket, the buffers the slice
+    #: kernels hand on within an iteration (:func:`_on_kernels`); else None
+    scratch: Optional[slice_cuda.Scratch] = None
 
 
 def _fixed(loglike_rows, gens, pools, lstar, probs, cfg, so_pools=None) -> _Fixed:
@@ -668,6 +672,7 @@ def _fixed(loglike_rows, gens, pools, lstar, probs, cfg, so_pools=None) -> _Fixe
         stepout = (float(cfg.stepout_w), m)
         cap = nrep * (int(cfg.max_shrink) + m + 2)
     counting = counters_enabled()
+    kernels = dev.type == "cuda" and stepout is None
     return _Fixed(
         loglike_rows, list(gens), pools, lstar.reshape(Q, 1),
         torch.tensor(probs, dtype=torch.int32, device=dev).repeat_interleave(B),
@@ -677,6 +682,7 @@ def _fixed(loglike_rows, gens, pools, lstar, probs, cfg, so_pools=None) -> _Fixe
         nrep, cap, int(cfg.max_shrink),
         *((None, None) if stepout is None else so_pools), stepout,
         torch.zeros((Q, B), dtype=torch.int64, device=dev) if counting else None,
+        slice_cuda.scratch(Q, B, pools.shape[3], dev) if kernels else None,
     )
 
 
@@ -746,6 +752,13 @@ def _slice_iter(c, x: _Fixed, live=None) -> None:
     _slice_step(c, x, live)
 
 
+def _on_kernels(c, x: _Fixed) -> bool:
+    """Whether :func:`_slice_step` runs as the slice kernels
+    (:mod:`mcalf_torch.ops.slice_cuda`): on a CUDA device with the chord
+    bracket.  The step-out bracket and the CPU take the torch ops."""
+    return c.u.is_cuda and x.stepout is None
+
+
 def _slice_step(c, x: _Fixed, live=None) -> None:
     """One slice iteration of every chain from the draws in ``x.r``, in
     place on ``c``: one likelihood call, and the accept / shrink / next-pass
@@ -754,9 +767,39 @@ def _slice_step(c, x: _Fixed, live=None) -> None:
     shrinks).  Where a problem has made all its passes, or the loop is past
     its cap, nothing moves: every phase's mask is false there, so the carry
     and ``n_like`` keep their values.  While counting, ``x.active`` counts
-    the chains with a pass to make.  ``live`` as in :func:`_slice_iter`."""
-    Q, B = c.logl.shape
-    dev = c.u.device
+    the chains with a pass to make.  ``live`` as in :func:`_slice_iter`.
+
+    Where :func:`_on_kernels` says so, the bookkeeping is the two slice
+    kernels around the likelihood call, bit for bit :func:`_slice_step_ops`,
+    the torch ops that define it (the bracket ends by value: a zero end's
+    sign, which no proposal reads, may differ)."""
+    if not _on_kernels(c, x):
+        _slice_step_ops(c, x, live)
+        return
+    s = x.scratch
+    slice_cuda.slice_propose(c.u, c.d, c.lo, c.hi, c.passes, c.it_total, c.n_like, x.r, s,
+                             nrep=x.nrep, total_cap=x.total_cap)
+    ll_prop = _evaluate(x, s.u_eval, live)
+    slice_cuda.slice_update(c.u, c.logl, c.d, c.lo, c.hi, c.it_pass, c.passes, c.it_total,
+                            x.active, x.pools, x.lstar, ll_prop, s, max_shrink=x.max_shrink)
+
+
+def _evaluate(x: _Fixed, u_eval, live) -> torch.Tensor:
+    """log L (Q, B) of the proposals ``u_eval`` (Q, B, ndim): one call over
+    every problem's rows, or with ``live`` over those problems' rows, the
+    others' reading -inf."""
+    Q, B = u_eval.shape[:2]
+    if live is None or len(live[0]) == Q:
+        return x.loglike_rows(u_eval.reshape(Q * B, -1), x.rows).reshape(Q, B)
+    qs, idx, rows = live
+    ll_prop = torch.full((Q, B), -math.inf, dtype=torch.float32, device=u_eval.device)
+    ll_prop[idx] = x.loglike_rows(u_eval[idx].reshape(len(qs) * B, -1), rows).reshape(-1, B)
+    return ll_prop
+
+
+def _slice_step_ops(c, x: _Fixed, live=None) -> None:
+    """:func:`_slice_step` as torch ops, for either bracket on any device."""
+    B = c.logl.shape[1]
     so = x.stepout is not None
     running = (c.passes < x.nrep) & (c.it_total < x.total_cap)
     active = running
@@ -765,14 +808,7 @@ def _slice_step(c, x: _Fixed, live=None) -> None:
         t = torch.where(c.phase == 0, c.lo, torch.where(c.phase == 1, c.hi, t))
     u_prop = c.u + t[..., None] * c.d
     inside = ((u_prop >= 0.0) & (u_prop <= 1.0)).all(dim=-1)
-    u_eval = torch.clamp(u_prop, 0.0, 1.0)
-    if live is None or len(live[0]) == Q:
-        ll_prop = x.loglike_rows(u_eval.reshape(Q * B, -1), x.rows).reshape(Q, B)
-    else:
-        qs, idx, rows = live
-        ll_prop = torch.full((Q, B), -math.inf, dtype=torch.float32, device=dev)
-        ll_prop[idx] = x.loglike_rows(u_eval[idx].reshape(len(qs) * B, -1), rows).reshape(-1, B)
-    ll_prop = torch.where(inside, ll_prop, -math.inf)
+    ll_prop = torch.where(inside, _evaluate(x, torch.clamp(u_prop, 0.0, 1.0), live), -math.inf)
     in_slice = ll_prop > x.lstar
     lo, hi = c.lo, c.hi
     if so:

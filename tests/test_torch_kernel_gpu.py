@@ -765,12 +765,14 @@ def test_cube_instantiations_keep_the_occupancy(any_fwd):
     assert cube == table and cube[0] == (3 if damped else 5)
 
 
-def _ptxas_counts():
+def _ptxas_counts(entry=None):
     """{(damped, cube): (registers, spill store bytes, spill load bytes)} of
     the fused kernel's four instantiations, from ptxas's output in the build
     log: the entry's "Used ... registers", and the spills of the entry and
     of every function ptxas lists under it (an out-of-line callee, such as
-    the free-resolution taps, spills in a frame of its own)."""
+    the free-resolution taps, spills in a frame of its own).  Given
+    ``entry``, a pattern with one group, the same of the entries it matches,
+    keyed by (that group,)."""
     import re
 
     from mcalf_torch.ops import _build
@@ -781,8 +783,12 @@ def _ptxas_counts():
     for line in _build.load().log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"fused_loglike_kernelILb([01])ELb([01])E", m.group(1))
-            key = (k.group(1) == "1", k.group(2) == "1") if k else None
+            if entry is not None:
+                k = re.search(entry, m.group(1))
+                key = (k.group(1),) if k else None
+            else:
+                k = re.search(r"fused_loglike_kernelILb([01])ELb([01])E", m.group(1))
+                key = (k.group(1) == "1", k.group(2) == "1") if k else None
             if key is not None:
                 out[key] = [0, 0, 0]
             continue
@@ -812,10 +818,16 @@ def test_register_and_spill_budgets():
     """ptxas's counts: the Harris-only instantiations in 48 registers with
     no spill (5 CTAs per SM; the per-line test of mode 2 is compiled out of
     them), the damped ones in at most 80 registers with at most 4 bytes
-    spilled each way."""
+    spilled each way; the slice kernels (csrc/slice_step.cu) in at most 64
+    registers (slice_propose's CTA of up to 1,024 threads needs no more)
+    with no spill."""
     counts = _ptxas_counts()
     for (damped, cube), (regs, stores, loads) in counts.items():
         if damped:
             assert regs <= 80 and stores <= 4 and loads <= 4, counts
         else:
             assert (regs, stores, loads) == (48, 0, 0), counts
+    slices = _ptxas_counts(r"(slice_propose|slice_update)_kernel")
+    assert set(slices) == {("slice_propose",), ("slice_update",)}, slices
+    for regs, stores, loads in slices.values():
+        assert regs <= 64 and stores == loads == 0, slices
