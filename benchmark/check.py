@@ -8,7 +8,8 @@ seed:
 * ``logl_rel``: the widest gap between a dead point's log L as the fit
   recorded it and the reference's log L of the same unit-cube row, in units
   of the port's bar (0.05 + 1e-5 |log L|); the rows are the two best of each
-  seed's dead points and six drawn at random;
+  seed's dead points and six drawn at random (in a resumed fit, from the
+  dead points past its checkpoint);
 * ``logz_rel``: the widest gap between a log Z the fit wrote (each seed's
   ``.stats`` and the merged ``.stats``) and the reference's log Z of the
   same run's log L sequence (each seed: its deletions and final live set;
@@ -24,9 +25,13 @@ seed:
 * ``order_breaks``: deaths out of order (a dead point below the one before
   it) and births at or above the point's own log L, counted;
 * ``dup_rows``: dead points that repeat an earlier dead point exactly;
+* ``resume_breaks``: in a fit resumed from a checkpoint, dead points before
+  the checkpoint's count whose unit-cube row or log L is not bit for bit
+  the checkpoint's (0 where a fit starts afresh);
 * ``failed_fits``: fits that raised or wrote no files.
 
-The last three are exact (limit 0).  :func:`control_numbers` gives the
+Every number covers the whole run, the part before a checkpoint too.  The
+last four are exact (limit 0).  :func:`control_numbers` gives the
 same numbers for the reference put in the program's place at the next
 precision below float32 (TF32 in the line-spread convolution, bfloat16 in
 the weights, the evidence and the prior transform).
@@ -44,7 +49,7 @@ from benchmark.reference.physics import Problem, to_bf16
 
 #: the rows of each seed's dead points compared: the best, and drawn ones
 TOP_ROWS, DRAWN_ROWS, FILE_ROWS = 2, 6, 8
-EXACT = ("order_breaks", "dup_rows", "failed_fits")
+EXACT = ("order_breaks", "dup_rows", "resume_breaks", "failed_fits")
 
 
 def _stats_logz(path: str) -> float:
@@ -65,12 +70,16 @@ def _rel(a: np.ndarray, ref: np.ndarray) -> np.ndarray:
 class Fit:
     """One fit of the window as the check reads it: its seeds, the runs
     (per seed, host numpy ``NSResults``-like objects with ``samples_u``,
-    ``logl``, ``logw``, ``birth_logl``, ``logz``, ``n_dead``), and the chain
-    basename its files were written under (None if it failed)."""
+    ``logl``, ``logw``, ``birth_logl``, ``logz``, ``n_dead``), the chain
+    basename its files were written under (None if it failed), and the
+    checkpoint it resumed from (a ``harness.Resume``: ``n_dead``,
+    ``dead_u``, ``dead_logl``), or None."""
 
-    def __init__(self, seeds: List[int], runs: list, base, max_samples: int, num_delete: int):
+    def __init__(self, seeds: List[int], runs: list, base, max_samples: int, num_delete: int,
+                 resume=None):
         self.seeds, self.runs, self.base = list(seeds), list(runs), base
         self.max_samples, self.num_delete = int(max_samples), int(num_delete)
+        self.resume = resume
 
 
 def _split(run, cap):
@@ -80,13 +89,29 @@ def _split(run, cap):
     return nlive, n_del, logl
 
 
-def _rows(run, cap, rng):
+def _rows(run, cap, rng, start=0):
     nlive, n_del, logl = _split(run, cap)
     dead = logl[:n_del]
     top = np.argsort(dead, kind="stable")[-TOP_ROWS:]
-    drawn = rng.choice(n_del, size=min(DRAWN_ROWS, n_del), replace=False)
+    late = max(n_del - start, 0)
+    drawn = start + rng.choice(late, size=min(DRAWN_ROWS, late), replace=False)
     idx = np.unique(np.concatenate([top, drawn]))
     return np.asarray(run.samples_u, np.float32)[idx], dead[idx]
+
+
+def _resume_breaks(run, cap, resume) -> int:
+    """Dead points before the checkpoint's count that are missing from the
+    run or differ, in any bit of their unit-cube row or log L, from the
+    checkpoint's."""
+    if resume is None:
+        return 0
+    _, n_del, _ = _split(run, cap)
+    n = min(resume.n_dead, n_del)
+    u = np.asarray(run.samples_u, np.float32)[:n].view(np.uint32)
+    logl = np.asarray(run.logl, np.float32)[:n].view(np.uint32)
+    differ = np.any(u != resume.dead_u[:n].view(np.uint32), axis=1)
+    differ |= logl != resume.dead_logl[:n].view(np.uint32)
+    return resume.n_dead - n + int(differ.sum())
 
 
 def _valid_points(run):
@@ -118,7 +143,7 @@ def compare(problem: Problem, fits: List[Fit], seed: int, control: bool = False)
     """The numbers compared, for the program's outputs (or, with
     ``control``, for the reference at lower precision in its place)."""
     out = dict(logl_rel=0.0, logz_rel=0.0, logw_gap=0.0, param_gap=0.0,
-               order_breaks=0, dup_rows=0, failed_fits=0)
+               order_breaks=0, dup_rows=0, resume_breaks=0, failed_fits=0)
     U, L = [], []
     bf = to_bf16 if control else None
     for f, fit in enumerate(fits):
@@ -128,7 +153,7 @@ def compare(problem: Problem, fits: List[Fit], seed: int, control: bool = False)
         cap, nd = fit.max_samples, fit.num_delete
         for q, (s, run) in enumerate(zip(fit.seeds, fit.runs)):
             rng = np.random.default_rng([seed & (2**63 - 1), f, q])
-            u, logl = _rows(run, cap, rng)
+            u, logl = _rows(run, cap, rng, 0 if fit.resume is None else fit.resume.n_dead)
             U.append(u)
             L.append(logl)
             nlive, n_del, all_logl = _split(run, cap)
@@ -152,6 +177,7 @@ def compare(problem: Problem, fits: List[Fit], seed: int, control: bool = False)
             out["order_breaks"] += int(np.sum(np.isfinite(birth) & (birth >= dead)))
             du = np.asarray(run.samples_u, np.float32)[:n_del]
             out["dup_rows"] += n_del - int(np.unique(du, axis=0).shape[0])
+            out["resume_breaks"] += _resume_breaks(run, cap, fit.resume)
         pts = [_valid_points(r) for r in fit.runs]
         pooled = (np.concatenate([p[0] for p in pts]), np.concatenate([p[1] for p in pts]))
         rng = np.random.default_rng([seed & (2**63 - 1), f, 10**6])

@@ -9,7 +9,11 @@ is a file of its own, found by its name:
   and the keys the benchmark changes (``section.option``: value;
   ``outdir`` and ``datadir`` are set per fit);
 * ``benchmark/traffic/<traffic>.json``: ``seeds_per_fit`` (the fleet of
-  ``[run] seeds`` each fit runs) and ``bracket``;
+  ``[run] seeds`` each fit runs), ``bracket`` and, optionally,
+  ``resume_at``: every fit of the run then resumes, as ``[run]
+  checkpoint`` does, from the state the fitter saved at that many dead
+  points (a chunk boundary of its sampler) in the run's set-up
+  (:meth:`Bench.checkpoint`), so the run measures a fit's later phase;
 * ``benchmark/metrics/<metric>.py``: ``read(record)``, the metric's value
   from the run's record, or None where it finds nothing to read;
 * ``benchmark/limits/<workload>.json``: the limit of each number that the
@@ -17,8 +21,9 @@ is a file of its own, found by its name:
 
 :class:`Bench` runs one fit of a cell through the fitter's command-line
 entry (``mcalf_torch.cli.main`` on a written ``.cfg``: ``runner.run_fit``,
-the seed ensemble as one stacked fleet, the merge and the chain files) and
-records around it what the fitter exposes: its ``nested_sampling`` phase
+the seed ensemble as one stacked fleet, the merge and the chain files; with
+``resume_at``, a fresh copy of the set-up's checkpoint) and records around
+it what the fitter exposes: its ``nested_sampling`` phase
 span, the kernels' launch counters, the captured loop's counters, the
 rows of each likelihood call (counted as the card runs them), and the
 per-seed runs the runner merged.
@@ -32,11 +37,12 @@ import hashlib
 import importlib.util
 import io
 import json
+import shutil
 import time
 import traceback
 from collections import Counter
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -73,6 +79,9 @@ class Cell:
         self.traffic = json.loads((HERE / "traffic" / f"{self.workload['traffic']}.json").read_text())
         self.limits = json.loads((HERE / "limits" / f"{workload}.json").read_text())
         self.seeds_per_fit = int(self.traffic["seeds_per_fit"])
+        self.resume_at = int(self.traffic.get("resume_at", 0))
+        if self.resume_at and self.seeds_per_fit != 1:
+            raise ValueError("resume_at needs seeds_per_fit 1: the fitter resumes one seed a fit")
         self.cfg_source = _pinned(self.config["cfg"], self.config["cfg_sha256"])
         self.datadir = _pinned(self.config["spectrum"], self.config["spectrum_sha256"]).parent
 
@@ -131,7 +140,7 @@ class Cell:
 
 
 #: the fits of a run that draw their seeds from ``--seed``
-ROLES = ("window", "warm-up", "profiled")
+ROLES = ("window", "warm-up", "profiled", "resume")
 
 
 def fit_seeds(seed: int, role: str, k: int, count: int) -> List[int]:
@@ -154,8 +163,31 @@ def _pinned(relpath: str, sha256: str) -> Path:
     return path
 
 
+class Resume(NamedTuple):
+    """The checkpoint a cell's fits resume from: the fit's seed, the
+    directory that holds the fitter's saved state, and what that state had
+    done (dead points, likelihood evaluations, and the dead points' unit-cube
+    rows and log L, host numpy)."""
+
+    seed: int
+    directory: Path
+    n_dead: int
+    n_like: int
+    dead_u: np.ndarray
+    dead_logl: np.ndarray
+
+
+class _Saved(Exception):
+    """Ends the set-up's fit once its state at ``resume_at`` is saved."""
+
+
+class SetupFailed(Exception):
+    """The program failed in a run's set-up, so the run is not correct."""
+
+
 class FitRecord:
-    """What one fit did: walls, counters, runs and where its files are."""
+    """What one fit did: walls, counters, runs and where its files are.
+    ``dead`` and ``n_like`` count what the fit added to its checkpoint's."""
 
     def __init__(self, seeds):
         self.seeds = list(seeds)
@@ -175,9 +207,56 @@ class Bench:
 
     def __init__(self, cell: Cell, workdir: Path):
         self.cell, self.workdir = cell, workdir
+        self.resume: Optional[Resume] = None
         self._captured: list = []
         self._rows: Counter = Counter()
         _install_spies(self)
+
+    def checkpoint(self, seed: int, extra: Optional[Dict[str, str]] = None) -> Resume:
+        """Run the cell's fit with ``seed`` through the fitter's own
+        functions, as its runner does for one seed (the model, the forward,
+        the sampler's configuration, ``nested_sample`` with a callback at
+        each chunk boundary), save the state at ``resume_at`` dead points
+        under the runner's fingerprint, as ``[run] checkpoint`` saves it, and
+        stop there.  Every later fit of this bench resumes from a copy."""
+        import torch
+
+        from mcalf_torch import runner
+        from mcalf_torch.config import readconfig
+        from mcalf_torch.sampler.nested import nested_sample
+        from mcalf_torch.utils.checkpoint import problem_fingerprint, save_state
+
+        at = self.cell.resume_at
+        home = self.workdir / "checkpoint"
+        pars = readconfig(str(self.cell.write_cfg(home, [seed], None, extra)))
+        device = runner.resolve_device(pars)
+        model = runner.build_model(pars)
+        fwd = runner.make_torch_forward(model, device, gpriors=model.gpriors is not None)
+        _, cfg, _ = runner._sampler_configs(pars, model, device)
+        fingerprint = problem_fingerprint(model, cfg, seed, device)
+        saved = []
+
+        def on_chunk(state):
+            if int(state.n_dead) < at:
+                return
+            if int(state.n_dead) == at:
+                path = home / "state" / f"ns_state_{int(state.step):06d}.npz"
+                save_state(str(path), state, fingerprint=fingerprint)
+                saved.append(path)
+            raise _Saved
+
+        gen = torch.Generator(device=device).manual_seed(seed)
+        try:
+            nested_sample(fwd.loglike_cube, gen, cfg, device, on_chunk=on_chunk)
+        except _Saved:
+            pass
+        if not saved:
+            raise SetupFailed(f"the fit met no chunk boundary at resume_at {at} dead points")
+        with np.load(saved[0]) as z:
+            n = int(z["n_dead"])
+            self.resume = Resume(seed, saved[0].parent, n, int(z["n_like"]),
+                                 z["dead_u"][:n].copy(), z["dead_logl"][:n].copy())
+        return self.resume
 
     def fit(self, k, seeds: List[int], max_samples: Optional[int] = None,
             extra: Optional[Dict[str, str]] = None) -> FitRecord:
@@ -187,6 +266,12 @@ class Bench:
         from mcalf_torch.utils.profiling import get_timings
 
         rec = FitRecord(seeds)
+        done_dead = done_like = 0
+        if self.resume is not None:
+            ckpt = self.workdir / f"fit{k}" / "checkpoint"
+            shutil.copytree(self.resume.directory, ckpt)
+            extra = dict(extra or {}, **{"run.checkpoint": str(ckpt)})
+            done_dead, done_like = self.resume.n_dead, self.resume.n_like
         cfg = self.cell.write_cfg(self.workdir / f"fit{k}", seeds, max_samples, extra)
         self._captured.clear()
         self._rows.clear()
@@ -217,8 +302,8 @@ class Bench:
         cap = self.cell.cap(cfg)
         for r in rec.runs:
             nlive = len(r.logl) - cap
-            rec.dead += int(r.n_dead) - nlive
-            rec.n_like += int(r.n_like)
+            rec.dead += int(r.n_dead) - nlive - done_dead
+            rec.n_like += int(r.n_like) - done_like
         return rec
 
 

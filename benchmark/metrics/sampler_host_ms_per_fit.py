@@ -7,13 +7,10 @@ and tails, the termination reads and chunk boundaries, ``finalize`` and the
 results' copies to the host."""
 
 from benchmark import spans
-from benchmark.run import WARM_OUTER_STEPS
 
 
 def read(rec):
-    # the warm-up and the profiled fit each run WARM_OUTER_STEPS outer
-    # steps, one slice loop each
-    got = spans.window(rec, "sampler.slice_loop", per_edge_fit=WARM_OUTER_STEPS)
+    got = spans.window(rec, "sampler.slice_loop")
     if not got:
         return None
     host = rec["ns_s"] - sum(got) - rec["capture_s"]

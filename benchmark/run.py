@@ -9,7 +9,12 @@ outer steps.  The window: fits of the cell back to back through
 ``mcalf_torch.cli.main``, each with fresh seeds drawn from ``--seed``; a
 fit starts while ``--seconds`` are not yet spent, and the window ends when
 the last one ends.  After it: with ``--trace 1`` one profiled fit (two outer steps)
-and the per-layer metrics; then the comparison against the plain reference
+and the per-layer metrics.  A cell whose traffic has ``resume_at`` first
+makes, in set-up, the fitter's checkpoint at that many dead points from a
+seed drawn from ``--seed`` (``harness.Bench.checkpoint``); then the warm-up,
+every window fit and the profiled fit resume from a copy of it with that
+seed and run to the cap, so every fit replays one continuation.  Then the
+comparison against the plain reference
 (:mod:`benchmark.check`), the outputs deleted, and one JSON line, the last
 of standard output.  Without a CUDA card (or with fewer than the cell
 asks for) it prints the reason on standard error and exits 2; it exits 3
@@ -67,22 +72,25 @@ def card_problem(chips: int):
 
 
 def measure(args, device: str = "cuda", extra=None, seeds_per_fit=None, t0=None,
-            with_control: bool = False) -> dict:
+            with_control: bool = False, resume_at=None) -> dict:
     """Set-up, the window, the profiled fit (``args.trace``) and the check
     of one cell; returns the result line as a dict.  ``device='cpu'``,
-    ``extra`` (``section.option``: value) and ``seeds_per_fit`` exist for
-    the CPU tests of the harness (a run on the card takes none of them);
+    ``extra`` (``section.option``: value), ``seeds_per_fit`` and
+    ``resume_at`` exist for the CPU tests of the harness (a run on the card
+    takes none of them);
     ``with_control`` adds the control's numbers on the same fits
     (``benchmark/control.py``)."""
     import torch
 
-    from benchmark import check, harness, work
+    from benchmark import check, harness, spans, work
     from benchmark.reference.physics import Problem
 
     t0 = T0 if t0 is None else t0
     cell = harness.Cell(args.workload)
     if seeds_per_fit is not None:
         cell.seeds_per_fit = seeds_per_fit
+    if resume_at is not None:
+        cell.resume_at = resume_at
     extra = dict(extra or {})
     if device == "cpu":
         extra["run.device"] = "cpu"
@@ -101,10 +109,25 @@ def measure(args, device: str = "cuda", extra=None, seeds_per_fit=None, t0=None,
         probe = cell.write_cfg(workdir / "probe", [0] * Q, extra=extra)
         nd = runner.solver_nsconfig(readconfig(str(probe)), 1).cfg.resolved().num_delete
         cap = cell.cap(probe)
-        warm = bench.fit("warm", harness.fit_seeds(args.seed, "warm-up", 0, Q),
-                         WARM_OUTER_STEPS * nd, extra)
-        if warm.error:
-            raise RuntimeError(f"the warm-up fit failed:\n{warm.output}\n{warm.error}")
+        resume, t_ckpt = None, time.perf_counter()
+        try:
+            if cell.resume_at:
+                resume = bench.checkpoint(harness.fit_seeds(args.seed, "resume", 0, 1)[0], extra)
+            t_ckpt = time.perf_counter() - t_ckpt
+
+            def seeds(role, k):
+                return [resume.seed] if resume is not None else harness.fit_seeds(args.seed, role, k, Q)
+
+            # a resumed fit's state is sized for the cap its checkpoint was saved at
+            edge_cap = None if resume is not None else WARM_OUTER_STEPS * nd
+            warm = bench.fit("warm", seeds("warm-up", 0), edge_cap, extra)
+            if warm.error:
+                raise harness.SetupFailed(f"the warm-up fit failed:\n{warm.output}\n{warm.error}")
+        except harness.SetupFailed as e:
+            print(f"benchmark: {e}", file=sys.stderr)
+            return {"correct": False, "attempted": 0, "failed": 1, "metrics": {},
+                    "device": _device_info(device, cell.chips),
+                    "checks": {"failed_fits": {"value": 1.0, "limit": 0.0}}}
         if device != "cpu":
             torch.cuda.reset_peak_memory_stats()
         setup_s = time.perf_counter() - t0
@@ -114,26 +137,29 @@ def measure(args, device: str = "cuda", extra=None, seeds_per_fit=None, t0=None,
 
             build = _build.load().build_seconds
         marks = "".join(f"{k} at {v:.3f} s, " for k, v in MARKS.items())
-        print(f"setup: {setup_s:.3f} s; {marks}imports {t_imports:.3f} s, the card {t_card - t_imports:.3f} s, warm-up fit "
+        ckpt = "" if resume is None else f"checkpoint at {resume.n_dead} dead points {t_ckpt:.3f} s, "
+        print(f"setup: {setup_s:.3f} s; {marks}imports {t_imports:.3f} s, the card {t_card - t_imports:.3f} s, {ckpt}warm-up fit "
               f"{warm.wall_s:.3f} s (kernel build {build:.3f} s, sampling {warm.ns_s:.3f} s, "
               f"graph capture {warm.capture_s:.3f} s)", file=sys.stderr)
 
         fits = []
+        span_marks = [spans.marks()]
         start = time.perf_counter()
         while not any(f.error for f in fits) and (
                 not fits or time.perf_counter() - start < args.seconds):
             k = len(fits)
-            fits.append(bench.fit(k, harness.fit_seeds(args.seed, "window", k, Q), None, extra))
+            fits.append(bench.fit(k, seeds("window", k), None, extra))
         window_s = time.perf_counter() - start
+        span_marks.append(spans.marks())
         for k, f in enumerate(fits):
             print(f"fit {k}: wall {f.wall_s:.3f} s, sampling {f.ns_s:.3f} s, dead points {f.dead}, "
                   f"evaluations {f.n_like}, likelihood calls {f.calls}, graph captures {f.captures} "
                   f"({f.capture_s:.3f} s)", file=sys.stderr)
         peak = torch.cuda.max_memory_allocated() if device != "cpu" else 0
 
-        problem = Problem(str(cell.cfg_source), str(cell.datadir))
+        problem = Problem(str(probe), str(cell.datadir))
         rec = {
-            "setup_s": setup_s, "window_s": window_s, "fits": len(fits),
+            "setup_s": setup_s, "window_s": window_s, "fits": len(fits), "span_marks": span_marks,
             "dead": sum(f.dead for f in fits), "n_like": sum(f.n_like for f in fits),
             "calls": sum(f.calls for f in fits), "ns_s": sum(f.ns_s for f in fits),
             "host_s": sum(f.wall_s - f.ns_s for f in fits),
@@ -141,18 +167,15 @@ def measure(args, device: str = "cuda", extra=None, seeds_per_fit=None, t0=None,
         }
         out = {"correct": False, "attempted": len(fits),
                "failed": sum(1 for f in fits if f.error)}
-        device_info = {"platform": "gpu" if device != "cpu" else "cpu",
-                       "kind": torch.cuda.get_device_name(0) if device != "cpu" else "cpu",
-                       "count": cell.chips, "memory_peak_bytes": int(peak)}
+        device_info = _device_info(device, cell.chips, peak)
         breakdown = None
         if args.trace:
             from benchmark import trace
 
             if device != "cpu":
                 print("card: " + _smi(), file=sys.stderr)
-            prof, prec = trace.profiled_fit(bench, "profiled",
-                                            harness.fit_seeds(args.seed, "profiled", 0, Q),
-                                            WARM_OUTER_STEPS * nd, workdir, extra)
+            prof, prec = trace.profiled_fit(bench, "profiled", seeds("profiled", 0),
+                                            edge_cap, workdir, extra)
             rec["profile"] = dict(prof, calls=prec.calls,
                                   row_counts=dict(prec.row_counts))
             rec["ops_per_eval"] = work.ops_per_eval(problem, args.seed & (2**32 - 1))
@@ -170,7 +193,7 @@ def measure(args, device: str = "cuda", extra=None, seeds_per_fit=None, t0=None,
         for f in fits:
             if f.error:
                 print(f"fit failed:\n{f.output}\n{f.error}", file=sys.stderr)
-        judged = [check.Fit(f.seeds, f.runs, f.base, cap, nd) for f in fits]
+        judged = [check.Fit(f.seeds, f.runs, f.base, cap, nd, resume) for f in fits]
         numbers = check.compare(problem, judged, args.seed)
         if with_control:
             out["control"] = check.control_numbers(problem, judged, args.seed)
@@ -184,6 +207,14 @@ def measure(args, device: str = "cuda", extra=None, seeds_per_fit=None, t0=None,
         return out
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _device_info(device: str, chips: int, peak: int = 0) -> dict:
+    import torch
+
+    return {"platform": "gpu" if device != "cpu" else "cpu",
+            "kind": torch.cuda.get_device_name(0) if device != "cpu" else "cpu",
+            "count": chips, "memory_peak_bytes": int(peak)}
 
 
 def _smi() -> str:

@@ -25,6 +25,13 @@ WORKLOAD = "civ-flagship.seeds8"
 #: repeats
 TINY = {"jaxns_settings.max_samples": "10", "ns_settings.nlive": "10",
         "ns_settings.num_repeats": "6"}
+#: the cells whose traffic resumes every fit from a checkpoint
+RESUMED = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]
+           if "resume_at" in json.loads((ROOT / "benchmark" / "traffic" / f"{w['traffic']}.json").read_text())]
+#: a resumed cell at TINY's size: the checkpoint at its first chunk boundary
+#: (8 outer steps of 5 dead points), then 10 dead points a fit
+TINY_RESUME_AT = 40
+TINY_RESUMED = dict(TINY, **{"jaxns_settings.max_samples": "50"})
 
 
 def tiny_run(seed: int = 2**33 + 5, with_control: bool = False, trace: int = 0) -> dict:
@@ -33,3 +40,11 @@ def tiny_run(seed: int = 2**33 + 5, with_control: bool = False, trace: int = 0) 
     return run.measure(Namespace(workload=WORKLOAD, seed=seed, seconds=0.0, trace=trace),
                        device="cpu", extra=TINY, seeds_per_fit=2, t0=time.perf_counter(),
                        with_control=with_control)
+
+
+def tiny_resumed_run(seed: int = 2**33 + 9, resume_at: int = TINY_RESUME_AT) -> dict:
+    import run
+
+    return run.measure(Namespace(workload=RESUMED[0], seed=seed, seconds=0.0, trace=0),
+                       device="cpu", extra=TINY_RESUMED, t0=time.perf_counter(),
+                       resume_at=resume_at)

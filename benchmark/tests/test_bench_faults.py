@@ -33,29 +33,36 @@ def _state_unchanged(monkeypatch):
     monkeypatch.setattr(nested, "_tail", tail)
 
 
+def _on_both_forwards(monkeypatch, broken):
+    """Put ``broken(orig)`` in place of the likelihood of a fleet's stacked
+    rows (``StackedForward.loglike_cube(u, prob)``) and of a one-seed fit's
+    rows (``TorchForward.loglike_cube(u)``)."""
+    from mcalf_torch.models.torch_model import StackedForward, TorchForward
+
+    for cls in (StackedForward, TorchForward):
+        monkeypatch.setattr(cls, "loglike_cube", broken(cls.loglike_cube))
+
+
 def _half_batch(monkeypatch):
     """The likelihood evaluates the first half of each batch and gives the
     rest the mean of that half."""
-    from mcalf_torch.models.torch_model import StackedForward
 
-    orig = StackedForward.loglike_cube
+    def broken(orig):
+        def half(self, u, *prob):
+            n = max(1, u.shape[0] // 2)
+            first = orig(self, u[:n], *(p[:n] for p in prob))
+            return torch.cat([first, first.mean().expand(u.shape[0] - n)])
 
-    def half(self, u, prob):
-        n = max(1, u.shape[0] // 2)
-        first = orig(self, u[:n], prob[:n])
-        return torch.cat([first, first.mean().expand(u.shape[0] - n)])
+        return half
 
-    monkeypatch.setattr(StackedForward, "loglike_cube", half)
+    _on_both_forwards(monkeypatch, broken)
 
 
 def _logl_altered(monkeypatch):
     """Each likelihood call hands its answers to the wrong rows, as a
     misindexed output would: row i gets row i+1's log L."""
-    from mcalf_torch.models.torch_model import StackedForward
-
-    orig = StackedForward.loglike_cube
-    monkeypatch.setattr(StackedForward, "loglike_cube",
-                        lambda self, u, prob: torch.roll(orig(self, u, prob), -1))
+    _on_both_forwards(monkeypatch, lambda orig: (
+        lambda self, u, *prob: torch.roll(orig(self, u, *prob), -1)))
 
 
 def _evidence_altered(monkeypatch):
