@@ -8,21 +8,38 @@ line-spread function and its taps, and the active components of each row.
 The Voigt function is ``scipy.special.wofz``; everything is float64.
 
 The model, for a unit-cube row u (parameter layout
-``[ncomp] [N, z, b] * ncompmax [N, z, b] * nfill``):
+``[specres] [cont] [ncomp] [N, z, b] * ncompmax [N, z, b] * nfill``, the
+first two slots only where ``[input] specres`` or ``[components] contval``
+is a range ``lo, hi``: upstream ``hires_fitter.py:54-62,168-200``):
 
-* p = lo + u (hi - lo); the active component count is floor(p[0]) of the
-  float32 transform (the sampled ncomp slot is a float32 number in the
-  stated model; its floor is the only discrete choice in the likelihood);
+* p = lo + u (hi - lo); the active component count is floor(p[startind])
+  of the float32 transform (the sampled ncomp slot is a float32 number in
+  the stated model; its floor is the only discrete choice in the
+  likelihood), with ``startind`` the number of the free slots before it;
 * tau(pixel) = sum over active components and their transitions, and every
   filler, of TAU_CONST 10^N f / dnu * Re w((nu(1+z) - nu0)/dnu + i a),
   with dnu = b / lambda0 and a = gamma / (4 pi dnu);
 * model = cont * LSF(exp(-tau)) with the LSF zero-padded and its ``half``
-  edge pixels on each side left unconvolved;
+  edge pixels on each side left unconvolved.  The LSF is a Gaussian of
+  FWHM ``specres`` sampled at k = -half .. half pixels and normalised to
+  sum 1; ``half`` is set by the largest FWHM the prior admits (upstream
+  ``hires_fitter.py:548-560``).  A free resolution gives each row its own
+  taps from its own FWHM, a free continuum its own cont;
 * log L = -1/2 sum over valid pixels of ivar (data - model)^2 - log ivar +
-  log 2 pi.
+  log 2 pi;
+* with ``[input] asymmlike``, log L is -inf where the valid pixels whose
+  residual (data - model) / noise exceeds 5 number more than npix
+  Phi(-5) + npix / 100, or those above 4 more than npix Phi(-4) + npix / 100
+  (upstream ``hires_fitter.py:296-302``).  Upstream takes the expected
+  counts from an unseeded draw of npix standard normals
+  (``hires_fitter.py:179-181``), so its limits change from run to run; this
+  reference takes the deterministic expectation npix Phi(-k), as the port
+  does (``mcalf_torch/models/forward.py:249-258``).
 
-``lines.json`` beside this file is a frozen copy of the transitions' atomic
-data.  Nothing here imports the fitter.
+``[components] gpriors`` is refused: upstream reaches it only from a dead
+path (``hires_fitter.py:218-234``), and no live solver applies it.
+``lines.json`` beside this file is a frozen copy of the transitions'
+atomic data.  Nothing here imports the fitter.
 """
 
 from __future__ import annotations
@@ -34,7 +51,7 @@ from pathlib import Path
 from typing import List, Tuple
 
 import numpy as np
-from scipy.special import wofz
+from scipy.special import ndtr, wofz
 
 CCGS = 2.9979245e10
 CLIGHT_KMS = 2.9979245e5
@@ -100,15 +117,17 @@ class Problem:
         def get(sec, key, default=None):
             return cp.get(sec, key) if cp.has_option(sec, key) else default
 
-        if str(get("input", "asymmlike", "False")).strip().lower() in ("true", "1", "yes"):
-            raise NotImplementedError("the reference has no asymmetric likelihood")
         if get("components", "gpriors") is not None:
             raise NotImplementedError("the reference has no Gaussian priors")
+        self.asymm = str(get("input", "asymmlike", "False")).strip().lower() in (
+            "true", "1", "yes", "on")
         specres = _floats(get("input", "specres", "7.0"))
         contval = _floats(get("components", "contval", "1.0"))
-        if specres.size > 1 or contval.size > 1:
-            raise NotImplementedError("the reference takes a fixed resolution and continuum")
-        self.fwhm = float(specres.max())
+        # a range is a sampled slot of its own, before the ncomp slot
+        self.free_res, self.free_cont = specres.size > 1, contval.size > 1
+        self.startind = int(self.free_res) + int(self.free_cont)
+        # the FWHM that sizes the LSF: a free resolution's upper end
+        self.fwhm = float(specres[1]) if self.free_res else float(specres.max())
         self.cont = float(contval[0])
 
         toks = [float(x) for x in get("input", "wavefit").split(",")]
@@ -125,6 +144,9 @@ class Problem:
         self.valid = np.isfinite(self.flux) & np.isfinite(self.noise) & (self.noise > 0)
         self.ivar = np.where(self.valid, 1.0 / np.where(self.valid, self.noise, 1.0) ** 2, 0.0)
         self.const_term = float(np.sum(-np.log(self.ivar[self.valid]) + math.log(2 * math.pi)))
+        # asymmlike: the most valid pixels above 5 and above 4 noise widths
+        self.asymm_limits = tuple(self.npix * float(ndtr(-k)) + 0.01 * self.npix
+                                  for k in (5.0, 4.0))
 
         names = [x.strip() for x in get("input", "linelist").split(",")]
         lines = [_LINES[" ".join(n.split())] for n in names]
@@ -154,7 +176,10 @@ class Problem:
                 w = _floats(wr)
                 lo, hi = (w[0], w[1]) if w.size == 2 else (w[2 * j], w[2 * j + 1])
                 fill_lims.append((lo / FILLER_WREST - 1, hi / FILLER_WREST - 1))
-        bounds = [(float(self.ncompmin), float(self.ncompmax))]
+        bounds = [(float(specres[0]), float(specres[1]))] if self.free_res else []
+        if self.free_cont:
+            bounds.append((float(contval[0]), float(contval[1])))
+        bounds.append((float(self.ncompmin), float(self.ncompmax)))
         for c in range(self.ncompmax):
             bounds += [Nr, zlims[c], br]
         for j in range(self.nfill):
@@ -165,12 +190,13 @@ class Problem:
 
         # one row per transition: its parameter triplet's index, atomic data,
         # and which component it belongs to (fillers: always active)
+        first = self.startind + 1
         trans = []
         for c in range(self.ncompmax):
-            trans += [(1 + 3 * c, ln, c, False) for ln in lines]
+            trans += [(first + 3 * c, ln, c, False) for ln in lines]
         filler = dict(lines[0], wrest=FILLER_WREST)
         for j in range(self.nfill):
-            trans.append((1 + 3 * self.ncompmax + 3 * j, filler, self.ncompmax + j, True))
+            trans.append((first + 3 * self.ncompmax + 3 * j, filler, self.ncompmax + j, True))
         self.pidx = np.array([t[0] for t in trans])
         self.wrest = np.array([t[1]["wrest"] for t in trans], np.float64)
         self.fosc = np.array([t[1]["f"] for t in trans], np.float64)
@@ -181,10 +207,20 @@ class Problem:
 
         sigma = self.fwhm / FWHM_TO_SIGMA / self.velstep
         self.half = int(math.ceil(SUPPORT_SIGMAS * sigma)) if self.fwhm > 0 else 0
-        k = np.arange(-self.half, self.half + 1, dtype=np.float64)
-        taps = np.exp(-(k ** 2) / (2.0 * sigma ** 2)) if self.half else np.ones(1)
-        self.taps = taps / taps.sum()
+        # (K,) taps of a fixed resolution; a free one makes each row's
+        self.taps = None if self.free_res else self.lsf_taps(np.array([self.fwhm]))[0]
         self.cw = CCGS / (self.wave / 1e8)                  # c / lambda, Hz
+
+    # ------------------------------------------------------------------
+    def lsf_taps(self, fwhm: np.ndarray) -> np.ndarray:
+        """(rows, K) normalised Gaussian taps at k = -half .. half pixels of
+        the FWHMs ``fwhm`` (rows,), km/s."""
+        sigma = np.asarray(fwhm, np.float64)[:, None] / FWHM_TO_SIGMA / self.velstep
+        if not self.half:
+            return np.ones((sigma.shape[0], 1))
+        k = np.arange(-self.half, self.half + 1, dtype=np.float64)
+        taps = np.exp(-(k ** 2) / (2.0 * sigma ** 2))
+        return taps / taps.sum(axis=-1, keepdims=True)
 
     # ------------------------------------------------------------------
     def params(self, u: np.ndarray) -> np.ndarray:
@@ -193,8 +229,9 @@ class Problem:
 
     def ncomp_active(self, u: np.ndarray) -> np.ndarray:
         """floor of the ncomp slot as the float32 transform gives it."""
-        u0 = np.asarray(u, np.float32)[:, 0]
-        lo, hi = np.float32(self.lo[0]), np.float32(self.hi[0])
+        i = self.startind
+        u0 = np.asarray(u, np.float32)[:, i]
+        lo, hi = np.float32(self.lo[i]), np.float32(self.hi[i])
         return np.floor(lo + u0 * (hi - lo)).astype(np.int64)
 
     def line_tables(self, u: np.ndarray):
@@ -219,40 +256,51 @@ class Problem:
         h = wofz(x + 1j * a[..., None]).real
         return np.einsum("rt,rtp->rp", amp, h)
 
-    def convolve(self, flux: np.ndarray, tf32: bool = False) -> np.ndarray:
-        """The LSF, zero-padded, edge pixels unconvolved.  ``tf32``: the
-        product of TF32 operands (10 explicit mantissa bits) accumulated in
-        float32, as a tensor-core convolution computes it."""
+    def convolve(self, flux: np.ndarray, taps: np.ndarray, tf32: bool = False) -> np.ndarray:
+        """The LSF of ``taps`` ((K,), or (rows, K): each row its own),
+        zero-padded, edge pixels unconvolved.  ``tf32``: the product of TF32
+        operands (10 explicit mantissa bits) accumulated in float32, as a
+        tensor-core convolution computes it."""
         h = self.half
         if h == 0:
             return flux
         P = flux.shape[-1]
-        taps = self.taps
+        taps = np.atleast_2d(taps)
         if tf32:
             flux32, taps = to_tf32(flux), to_tf32(taps)
             pad = np.pad(flux32, ((0, 0), (h, h)))
             acc = np.zeros_like(flux32, dtype=np.float32)
             for k in range(2 * h + 1):
-                acc = (acc + np.float32(taps[k]) * pad[:, k:k + P]).astype(np.float32)
+                acc = (acc + taps[:, k, None] * pad[:, k:k + P]).astype(np.float32)
             acc = acc.astype(np.float64)
         else:
             pad = np.pad(flux, ((0, 0), (h, h)))
             acc = np.zeros_like(flux)
             for k in range(2 * h + 1):
-                acc += taps[k] * pad[:, k:k + P]
+                acc += taps[:, k, None] * pad[:, k:k + P]
         edge = np.zeros(P, bool)
         edge[:h] = edge[P - h:] = True
         return np.where(edge, flux, acc)
 
     def loglike(self, u: np.ndarray, tf32: bool = False, block: int = 32) -> np.ndarray:
-        """log L of unit-cube rows (rows, ndim), in blocks of ``block`` rows."""
+        """log L of unit-cube rows (rows, ndim), in blocks of ``block`` rows;
+        -inf where ``asymmlike`` rejects the row's model."""
         u = np.atleast_2d(np.asarray(u))
         out = np.empty(u.shape[0], np.float64)
         for s in range(0, u.shape[0], block):
-            model = self.cont * self.convolve(np.exp(-self.tau(u[s:s + block])), tf32)
+            ub = u[s:s + block]
+            p = self.params(ub)
+            taps = self.lsf_taps(p[:, 0]) if self.free_res else self.taps
+            cont = p[:, int(self.free_res), None] if self.free_cont else self.cont
+            model = cont * self.convolve(np.exp(-self.tau(ub)), taps, tf32)
             r = self.flux - model
             chi2 = np.sum(np.where(self.valid, self.ivar * r * r, 0.0), axis=-1)
             out[s:s + block] = -0.5 * (chi2 + self.const_term)
+            if self.asymm:
+                z = np.where(self.valid, r / np.where(self.valid, self.noise, 1.0), 0.0)
+                n5, n4 = np.sum(z > 5.0, axis=-1), np.sum(z > 4.0, axis=-1)
+                lim5, lim4 = self.asymm_limits
+                out[s:s + block] = np.where((n5 > lim5) | (n4 > lim4), -np.inf, out[s:s + block])
         return out
 
 

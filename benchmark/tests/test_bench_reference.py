@@ -2,6 +2,7 @@
 evidence against the sampler's own bookkeeping, and what it imports."""
 
 import ast
+import configparser
 import json
 import subprocess
 import sys
@@ -18,15 +19,34 @@ from benchmark.reference.physics import Problem, to_bf16, to_tf32
 FORBIDDEN = {"jax", "jaxlib", "flax", "mcalf_tpu"}
 
 
-def _port_forward(cfg):
+def _port_forward(cfg, datadir=None):
     from mcalf_torch.config import readconfig
     from mcalf_torch.models import make_torch_forward
     from mcalf_torch.runner import build_model
 
     pars = readconfig(str(cfg))
-    pars["specfile"] = str(cfg.parent / pars["specfile"].rsplit("/", 1)[-1])
+    if datadir is None:
+        pars["specfile"] = str(cfg.parent / pars["specfile"].rsplit("/", 1)[-1])
     model = build_model(pars)
     return model, make_torch_forward(model, "cpu")
+
+
+def _assert_matches_the_port(ref, model, fwd, u):
+    """Layout and bounds equal, -inf where the port's is, and every other
+    log L within the port's bar (0.05 + 1e-5 |log L|); returns the
+    reference's log L."""
+    assert ref.ndim == model.ndim and ref.npix == model.npix
+    assert ref.startind == model.startind
+    np.testing.assert_array_equal(ref.lo, model.bounds_lo)
+    np.testing.assert_array_equal(ref.hi, model.bounds_hi)
+    assert ref.half == model.kernel_half_size()
+    got = fwd.loglike_cube(torch.from_numpy(u)).numpy().astype(np.float64)
+    want = ref.loglike(u)
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    kept = np.isfinite(want)
+    assert np.all(np.isfinite(got[kept]))
+    assert np.all(np.abs(got[kept] - want[kept]) <= 0.05 + 1e-5 * np.abs(want[kept]))
+    return want
 
 
 @pytest.mark.parametrize("cfg", CFGS)
@@ -36,14 +56,68 @@ def test_reference_loglike_matches_the_port_plain_path(cfg):
     cfg = ROOT / cfg
     model, fwd = _port_forward(cfg)
     ref = Problem(str(cfg), str(cfg.parent))
-    assert ref.ndim == model.ndim and ref.npix == model.npix
-    np.testing.assert_array_equal(ref.lo, model.bounds_lo)
-    np.testing.assert_array_equal(ref.hi, model.bounds_hi)
-    assert ref.half == model.kernel_half_size()
     u = np.random.default_rng(7).random((16, ref.ndim)).astype(np.float32)
-    got = fwd.loglike_cube(torch.from_numpy(u)).numpy().astype(np.float64)
-    want = ref.loglike(u)
-    assert np.all(np.abs(got - want) <= 0.05 + 1e-5 * np.abs(want))
+    _assert_matches_the_port(ref, model, fwd, u)
+
+
+#: the flagship's .cfg with MC-ALF's nuisance keys: a sampled LSF width
+#: (7-9 km/s about the published 8), a sampled continuum (+-2%), and the
+#: asymmetric likelihood, alone and together
+NUISANCE = {
+    "free_resolution": {"input.specres": "7.0, 9.0"},
+    "free_continuum": {"components.contval": "0.98, 1.02"},
+    "both_with_asymmlike": {"input.specres": "7.0, 9.0", "components.contval": "0.98, 1.02",
+                            "input.asymmlike": "True"},
+    "asymmlike": {"input.asymmlike": "True"},
+}
+
+
+def _variant(tmp_path, changes):
+    cp = configparser.ConfigParser()
+    cp.read(ROOT / "testdata" / "fit.cfg")
+    changes = dict(changes, **{"pathing.datadir": f"{ROOT / 'testdata'}/"})
+    for key, value in changes.items():
+        section, option = key.split(".", 1)
+        cp.set(section, option, value)
+    path = tmp_path / "fit.cfg"
+    with open(path, "w") as fh:
+        cp.write(fh)
+    return path
+
+
+@pytest.mark.parametrize("variant", sorted(NUISANCE))
+def test_reference_takes_the_nuisance_keys_as_the_port(variant, tmp_path):
+    """Each nuisance variant of the flagship: the layout (free slots before
+    ncomp), bounds and LSF size of the port, and log L on seeded rows
+    within the bar, with the -inf pattern exact.  Each of four seeded rows
+    has its column densities set to a ladder from the prior's low end
+    (a model near the continuum, which asymmlike keeps) upwards: the counts
+    of residuals above 4 and 5 noise widths pass their limits on the way,
+    the one above 4 first, so the ladder holds rows kept below the limits,
+    rows rejected by the count above 4 alone, and rows rejected by both."""
+    changes = NUISANCE[variant]
+    cfg = _variant(tmp_path, changes)
+    model, fwd = _port_forward(cfg, datadir=ROOT / "testdata")
+    ref = Problem(str(cfg), str(ROOT / "testdata"))
+    free = ("input.specres" in changes) + ("components.contval" in changes)
+    assert ref.startind == free and ref.ndim == 34 + free
+    ladder = np.arange(0.0, 0.32, 0.02, dtype=np.float32)
+    u = np.repeat(np.random.default_rng(11).random((4, ref.ndim)).astype(np.float32),
+                  ladder.size, axis=0)
+    u[:, np.unique(ref.pidx)] = np.tile(ladder, 4)[:, None]
+    want = _assert_matches_the_port(ref, model, fwd, u)
+    if "input.asymmlike" in changes:
+        rejected = np.isneginf(want).reshape(4, ladder.size)
+        assert not rejected[:, 0].any() and rejected[:, -1].all()
+        assert 8 <= rejected.sum() <= 4 * ladder.size - 8
+    else:
+        assert np.all(np.isfinite(want))
+
+
+def test_reference_still_refuses_gaussian_priors(tmp_path):
+    cfg = _variant(tmp_path, {"components.gpriors": "12.0, 0.5"})
+    with pytest.raises(NotImplementedError, match="Gaussian priors"):
+        Problem(str(cfg), str(ROOT / "testdata"))
 
 
 def test_rounding_helpers():

@@ -46,7 +46,32 @@ def test_hand_count_of_a_row():
     assert work.row_ops(10, 0) == 10 + 40
     # 2 problems of T=2, P=3, K=3; 5 rows: rows 4T + K + cont + prob + 3 outputs
     class P:
-        ntrans, npix, half = 2, 3, 1
+        ntrans, npix, half, free_res = 2, 3, 1, False
     assert work.launch_bytes(P, 5, 2) == 4 * (5 * (8 + 3 + 1 + 1 + 3) + 2 * (6 + 12) + 4)
     least, bound = work.least_seconds(67e12, 1.0)
     assert least == 1.0 and bound == "operations"
+
+
+# a problem's nuisance keys -> (operations a row adds, the LSF's entries a
+# row reads): K = 3 taps, 10 pixels of which 8 valid
+NUISANCE = {
+    "none": ((False, False, False), 0.0, 3),
+    "free_resolution": ((True, False, False), 3 * 3, 1),
+    "free_continuum": ((False, True, False), 10, 3),
+    "asymmlike": ((False, False, True), 2 * 8, 3),
+    "all": ((True, True, True), 3 * 3 + 10 + 2 * 8, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NUISANCE))
+def test_hand_count_of_the_nuisance_keys(case):
+    (free_res, free_cont, asymm), ops, lsf = NUISANCE[case]
+
+    class P:
+        ntrans, npix, half = 2, 10, 1
+        valid = np.arange(10) < 8
+
+    P.free_res, P.free_cont, P.asymm = free_res, free_cont, asymm
+    assert work.nuisance_row_ops(P) == ops
+    # one row of one problem: 4T + the LSF's entries + continuum + 3 outputs
+    assert work.launch_bytes(P, 1, 1) == 4 * ((8 + lsf + 1 + 3) + (20 + 40) + 4)

@@ -14,8 +14,9 @@ A fused multiply-add counts 2, every other arithmetic operation, division
 or transcendental 1, compares and selects 0; each pixel's count includes
 forming u (3) and adding into tau (2).  Per row the likelihood adds the
 exponential, the line-spread function over the pixels it convolves and
-the chi^2 (4 a pixel).  Each input byte is read once and each output byte
-written once.
+the chi^2 (4 a pixel), and what a configuration's nuisance keys add
+(:func:`nuisance_row_ops`).  Each input byte is read once and each output
+byte written once.
 """
 
 from __future__ import annotations
@@ -68,12 +69,29 @@ def row_ops(npix: int, half: int) -> float:
     return float(npix + 2 * taps * max(npix - 2 * half, 0) * (half > 0) + 4 * npix)
 
 
+def nuisance_row_ops(problem) -> float:
+    """Operations per row that the nuisance keys add, 0 without them: a free
+    resolution makes the row's K = 2 half + 1 taps (an exponential, an add
+    into their sum and a divide by it each); a free continuum scales each
+    pixel of the row's model (a fixed one folds into the data); asymmlike
+    counts the valid pixels whose residual passes 4 and 5 noise widths (two
+    compares against per-pixel thresholds, and two adds)."""
+    ops = 0.0
+    if problem.free_res:
+        ops += 3.0 * (2 * problem.half + 1)
+    if problem.free_cont:
+        ops += float(problem.npix)
+    if problem.asymm:
+        ops += 2.0 * float(np.sum(problem.valid))
+    return ops
+
+
 def eval_ops(problem, u: np.ndarray, block: int = 16) -> float:
     """Operations of the likelihood over the unit-cube rows ``u`` of
     ``problem`` (a :class:`benchmark.reference.physics.Problem`), taken in
     blocks of ``block`` rows."""
     u = np.atleast_2d(np.asarray(u, np.float32))
-    ops = u.shape[0] * row_ops(problem.npix, problem.half)
+    ops = u.shape[0] * (row_ops(problem.npix, problem.half) + nuisance_row_ops(problem))
     for s in range(0, u.shape[0], block):
         z, _, a, dnu, active = problem.line_tables(u[s:s + block])
         x = problem.u_voigt(z, dnu)
@@ -90,11 +108,13 @@ def ops_per_eval(problem, seed: int, rows: int = 128) -> float:
 
 def launch_bytes(problem, rows: int, problems: int) -> int:
     """Bytes one likelihood launch must move: per row its (dz, amplitude,
-    a, dnu) per transition, LSF taps, continuum, problem index and three
+    a, dnu) per transition, LSF taps (a free resolution's row: its FWHM,
+    from which the card makes them), continuum, problem index and three
     outputs; per problem the (transition, pixel) offsets, the pixels' c /
     lambda, data, inverse variance and inverse noise; per transition two
     table entries."""
-    T, P, K = problem.ntrans, problem.npix, 2 * problem.half + 1
+    T, P = problem.ntrans, problem.npix
+    K = 1 if problem.free_res else 2 * problem.half + 1
     per_row = 4 * T + K + 1 + (1 if problems > 1 else 0) + 3
     per_problem = T * P + 4 * P
     return 4 * (rows * per_row + problems * per_problem + 2 * T)
@@ -108,6 +128,6 @@ def least_seconds(ops: float, nbytes: float):
 
 
 __all__ = [
-    "tau_ops", "row_ops", "eval_ops", "ops_per_eval", "launch_bytes", "least_seconds",
-    "PEAK_F32", "PEAK_BYTES", "HARRIS_A_MAX",
+    "tau_ops", "row_ops", "nuisance_row_ops", "eval_ops", "ops_per_eval", "launch_bytes",
+    "least_seconds", "PEAK_F32", "PEAK_BYTES", "HARRIS_A_MAX",
 ]
