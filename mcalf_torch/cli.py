@@ -18,7 +18,8 @@ evaluated rows that were masked, the seconds of each phase span of the
 fit, one line per name, and the fit's fused-kernel launches beside those
 of them that built their line tables from the unit cube, with the (row,
 transition) pairs they evaluated (``lines``) and those of them that took
-the full damped Voigt function (``hjert_lines``), and the slice iterations
+the full damped Voigt function (``hjert_lines``) and their pixels that
+took its Algorithm 916 series (``series_evals``), and the slice iterations
 whose bookkeeping ran as the slice kernels (``slice_cuda.launches``, one
 launch of ``slice_update`` each).  Plotting
 (:mod:`mcalf_torch.plotting`) reads the chain files back, so
@@ -92,7 +93,7 @@ def _run(args, configpars) -> int:
 
     before = {k: len(v) for k, v in profiling.get_timings().items()}
     launches = (voigt_cuda.launches, voigt_cuda.cube_launches, voigt_cuda.lines,
-                voigt_cuda.hjert_lines, slice_cuda.launches)
+                voigt_cuda.hjert_lines, voigt_cuda.series_evals, slice_cuda.launches)
     was = profiling.enable_counters(True)
     try:
         return _fit_and_plot(args, configpars)
@@ -105,8 +106,9 @@ def _run(args, configpars) -> int:
         print(f"[DEBUG]: fused-kernel launches {voigt_cuda.launches - launches[0]}, "
               f"{voigt_cuda.cube_launches - launches[1]} of them from the unit cube; "
               f"lines {voigt_cuda.lines - launches[2]}, "
-              f"hjert_lines {voigt_cuda.hjert_lines - launches[3]}; "
-              f"slice_update launches {slice_cuda.launches - launches[4]}")
+              f"hjert_lines {voigt_cuda.hjert_lines - launches[3]}, "
+              f"series_evals {voigt_cuda.series_evals - launches[4]}; "
+              f"slice_update launches {slice_cuda.launches - launches[5]}")
 
 
 def _fit_and_plot(args, configpars) -> int:

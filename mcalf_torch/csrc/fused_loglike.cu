@@ -32,10 +32,13 @@
 //     [r*tile, min((r+1)*tile, P)); at the flagship's P = 1999 and B = 100
 //     that is 800 CTAs over the 132 SMs, one pixel per thread.
 //   * Registers: two instantiations, chosen by the host from the mode table
-//     (voigt_cuda._any_damped).  A model with only Harris transitions runs in
-//     48 registers, 5 CTAs (40 warps) per SM; one with a transition that may
-//     be strongly damped needs 80 for the non-inlined 916 call, 3 CTAs (24
-//     warps), and counts the lines that took mode 2 (hjert_lines_count).
+//     (voigt_cuda._any_damped), both in 48 registers, 5 CTAs (40 warps) per
+//     SM.  One with a transition that may be strongly damped calls the
+//     non-inlined 916 series, whose minus-term loops stay loops so that its
+//     frame fits the same budget (it runs on a small share of the pairs;
+//     the Harris lines of every row run at the full occupancy), and counts
+//     the lines that took mode 2 (hjert_lines_count) and the pairs that
+//     took the series (series_evals_count).
 //   * Per (transition, pixel) step: the transition's scalars are one 32-byte
 //     record in shared memory (voigt_h.cuh LineTables), d0 is walked by a
 //     pointer and loaded one transition ahead, mode 0 is folded into the
@@ -160,6 +163,10 @@ struct CubeRows {
 // voigt_cuda.hjert_lines reads.  A static symbol, so a launch captured in a
 // CUDA graph adds at each replay and nothing is allocated at capture.
 __device__ unsigned long long hjert_lines_count = 0;
+// The (line, pixel) pairs that took the Algorithm 916 series, likewise: one
+// atomic per CTA from its shared count (voigt_h.cuh series_pairs); what
+// voigt_cuda.series_evals reads.
+__device__ unsigned long long series_evals_count = 0;
 
 // A cube launch's row constants, left in shared memory by the prologue so
 // that nothing of the cube path stays live across the pixel loop: the
@@ -263,16 +270,16 @@ __device__ __forceinline__ float cube_loglike(const CubeRows& r, float chi, int 
 template <bool kCube>
 using Rows = typename std::conditional<kCube, CubeRows, TableRows>::type;
 
-// Resident CTAs per SM the registers must allow: 5 x 8 = 40 warps for a
-// model with only Harris transitions (48 registers), 3 x 8 = 24 for one with
-// a strongly damped transition, whose non-inlined Algorithm-916 call needs
-// up to 80 registers without spilling.  kCube changes the prologue and the
-// epilogue only: the pixel loop, the halo, the LSF and the reductions are
-// the same code in all four instantiations, and each cube instantiation
-// keeps its table twin's registers and spills.  `rows` is a grid constant,
-// so free_taps reads it where the launch put it, without a local copy.
+// Resident CTAs per SM the registers must allow: 5 x 8 = 40 warps (48
+// registers) in all four instantiations; the damped ones' Algorithm-916
+// call takes its register-lean form (wofz_real_916<true>) to fit them.
+// kCube changes the prologue and the epilogue only: the pixel loop, the
+// halo, the LSF and the reductions are the same code in all four
+// instantiations, and each cube instantiation keeps its table twin's
+// registers and spills.  `rows` is a grid constant, so free_taps reads it
+// where the launch put it, without a local copy.
 template <bool kDamped, bool kCube>
-__global__ void __launch_bounds__(kThreads, kDamped ? 3 : 5)
+__global__ void __launch_bounds__(kThreads, 5)
 fused_loglike_kernel(const __grid_constant__ Rows<kCube> rows,
                      const float* __restrict__ d0,      // ([Q,] T, P)
                      const float* __restrict__ cw,      // ([Q,] P)
@@ -416,6 +423,10 @@ fused_loglike_kernel(const __grid_constant__ Rows<kCube> rows,
   // Every partial has landed in CTA 0, and every halo read is done: after
   // this no CTA touches another's shared memory, so all may leave.
   cluster.sync();
+  if constexpr (kDamped) {  // the CTA's series pairs, one atomic a CTA
+    if (tid == 0 && mcalf::series_pairs != 0)
+      atomicAdd(&series_evals_count, static_cast<unsigned long long>(mcalf::series_pairs));
+  }
   if (rank == 0 && tid == 0) {
     float s_chi = 0.0f;
     int s4 = 0, s5 = 0;
@@ -565,17 +576,32 @@ extern "C" int mcalf_fused_loglike_cube(
       (damped ? launch<true, true> : launch<false, true>)(rows, sp, stream));
 }
 
-// The fused launches' mode-2 lines on `device` (hjert_lines_count), once
-// every launch issued to it has run: the one read of the counter, which
-// synchronises the device.  Returns the first CUDA error.
-extern "C" int mcalf_fused_hjert_lines(int device, unsigned long long* out) {
+namespace {
+
+// A device counter's value on `device`, once every launch issued to it has
+// run: the one read of the counter, which synchronises the device.
+int read_counter(const unsigned long long& symbol, int device, unsigned long long* out) {
   int was = 0;
   cudaError_t e = cudaGetDevice(&was);
   if (e == cudaSuccess) e = cudaSetDevice(device);
   if (e == cudaSuccess) e = cudaDeviceSynchronize();
-  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, hjert_lines_count, sizeof(*out));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, symbol, sizeof(*out));
   const cudaError_t back = cudaSetDevice(was);
   return static_cast<int>(e != cudaSuccess ? e : back);
+}
+
+}  // namespace
+
+// The fused launches' mode-2 lines on `device` (hjert_lines_count).
+// Returns the first CUDA error.
+extern "C" int mcalf_fused_hjert_lines(int device, unsigned long long* out) {
+  return read_counter(hjert_lines_count, device, out);
+}
+
+// The fused launches' (line, pixel) pairs on `device` that took the 916
+// series (series_evals_count).  Returns the first CUDA error.
+extern "C" int mcalf_fused_series_evals(int device, unsigned long long* out) {
+  return read_counter(series_evals_count, device, out);
 }
 
 // Occupancy of a geometry: CTAs of the kernel for `damped` and `cube`

@@ -19,7 +19,9 @@
 //   * Two instantiations, picked by the host from the mode table
 //     (voigt_cuda._any_damped): Harris-only, whose registers allow
 //     kHarrisMinCtas CTAs of kMaxThreads per SM, and damped, whose
-//     non-inlined Algorithm-916 call needs more (kDampedMinCtas).
+//     non-inlined Algorithm-916 call needs more (kDampedMinCtas): its fully
+//     unrolled form, wofz_real_916<false>, faster per call than the fused
+//     kernel's register-lean one.
 //   * Several samples per thread: a CTA takes one pixel tile (a pixel per
 //     thread) of one group of S samples; a thread loads d0[t, p] once per
 //     transition and updates S independent sums, S chains for the scheduler
@@ -191,7 +193,7 @@ __device__ __forceinline__ void group_tau(const float4* rec, const float* den,
         const float a = q.w;
         const float H =
             (u * u + a * a < MCALF_R2_SWITCH)
-                ? mcalf::wofz_real_916(fabsf(u), a, w.y, w.z, den + (S * t + s) * kTerms)
+                ? mcalf::wofz_real_916<false>(fabsf(u), a, w.y, w.z, den + (S * t + s) * kTerms)
                 : mcalf::wofz_real_asym(u, a);
         tau[s] = tau[s] + q.z * H;
       }

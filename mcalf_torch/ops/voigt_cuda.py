@@ -46,8 +46,10 @@ plain version, CUDA tensors launch the kernel or raise.  ``launches`` and
 the unit cube; ``lines`` counts the (row, transition) pairs of the fused
 launches: a launch captured in a CUDA graph counts at each replay
 (:func:`mcalf_torch.utils.profiling.count_launch`).  ``hjert_lines``, the
-lines of those launches that took the full ``hjert``, is counted by the
-card itself and read (with one synchronisation) when the name is read.
+lines of those launches that took the full ``hjert``, and ``series_evals``,
+the (line, pixel) pairs of those lines that took its Algorithm 916 series,
+are counted by the card itself and read (with one synchronisation) when the
+name is read.
 The kernels' design and what bounds them are noted in their sources;
 their launch geometries (the fused
 kernel's thread block cluster per sample, the tau kernel's CTA per sample
@@ -90,6 +92,7 @@ __all__ = [
     "cube_launches",
     "lines",
     "hjert_lines",
+    "series_evals",
     "tau_launches",
 ]
 
@@ -103,7 +106,9 @@ cube_launches = 0
 #: rows x transitions of those launches
 lines = 0
 # ``hjert_lines`` (module __getattr__): of those, the lines that took the
-# full Algorithm 916 / asymptotic ``hjert`` on every pixel, no wing window
+# full Algorithm 916 / asymptotic ``hjert`` on every pixel, no wing window;
+# ``series_evals`` (likewise): the (line, pixel) pairs of those lines that
+# took the Algorithm 916 series (u^2 + a^2 < R2_SWITCH)
 #: number of CUDA kernel launches made by :func:`voigt_tau`
 tau_launches = 0
 
@@ -322,31 +327,33 @@ def _sm_count(device_index: int) -> int:
 #: id(modes) -> (weak reference to it, its version, its mode-2 transitions)
 _DAMPED = {}
 #: indices of the devices that ran a damped fused launch: their counters
-#: hold ``hjert_lines``
+#: hold ``hjert_lines`` and ``series_evals``
 _HJERT_DEVICES = set()
 
 
-def _device_hjert_lines(index: int) -> int:
-    """The mode-2 lines of every damped fused launch on device ``index``,
-    counted by the kernel (csrc/fused_loglike.cu ``hjert_lines_count``):
-    waits for the device's work, then reads the counter."""
+def _device_counter(name: str, index: int) -> int:
+    """The fused kernel's device counter ``name`` on device ``index``
+    (csrc/fused_loglike.cu ``mcalf_fused_<name>``: ``hjert_lines``, one add
+    a row, or ``series_evals``, one add a CTA): waits for the device's
+    work, then reads it."""
     from mcalf_torch.ops._build import load
 
-    fn = load().lib.mcalf_fused_hjert_lines
+    fn = getattr(load().lib, f"mcalf_fused_{name}")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     out = ctypes.c_ulonglong(0)
     err = fn(index, ctypes.addressof(out))
     if err != 0:
-        raise RuntimeError(f"reading the fused kernel's hjert_lines failed: CUDA error {err}")
+        raise RuntimeError(f"reading the fused kernel's {name} failed: CUDA error {err}")
     return out.value
 
 
 def __getattr__(name: str):
-    # hjert_lines syncs each device that counts it, so it is read only when
-    # asked for (never per launch or per replay; not during a graph capture)
-    if name == "hjert_lines":
-        return sum(_device_hjert_lines(i) for i in sorted(_HJERT_DEVICES))
+    # the device counters sync each device that counts them, so they are
+    # read only when asked for (never per launch or per replay; not during
+    # a graph capture)
+    if name in ("hjert_lines", "series_evals"):
+        return sum(_device_counter(name, i) for i in sorted(_HJERT_DEVICES))
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -648,7 +655,7 @@ def fused_loglike(
 
 def _counted(device: torch.device, damped: bool) -> None:
     """Note a fused launch's device: a damped launch counts its mode-2
-    lines there."""
+    lines and series pairs there."""
     if damped:
         _HJERT_DEVICES.add(device.index if device.index is not None
                            else torch.cuda.current_device())
@@ -824,7 +831,8 @@ def fused_loglike_cube(u, prob, t: CubeTables, *, half: int, asymm: bool) -> tor
     prob must lie in [0, Q) (not checked: that would cost a device read).
     Adds one to :data:`launches` and :data:`cube_launches`, and its rows
     x transitions to :data:`lines`; the card adds the lines that took the
-    full ``hjert`` to ``hjert_lines``."""
+    full ``hjert`` to ``hjert_lines`` and their pixels that took its series
+    to ``series_evals``."""
     if u.device.type == "cpu":
         return fused_loglike_cube_plain(u, prob, t, half=half, asymm=asymm)
     if u.device.type != "cuda":

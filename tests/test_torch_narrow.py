@@ -140,7 +140,7 @@ def card(monkeypatch):
     launch yet."""
     counts = {}
     monkeypatch.setattr(voigt_cuda, "_HJERT_DEVICES", set())
-    monkeypatch.setattr(voigt_cuda, "_device_hjert_lines", counts.__getitem__)
+    monkeypatch.setattr(voigt_cuda, "_device_counter", lambda _name, i: counts[i])
     return counts
 
 
@@ -299,3 +299,62 @@ def test_kernel_matches_the_plain_twin_on_narrow_rows(narrow_cuda, kind, layout)
     assert np.array_equal(np.isfinite(got), np.isfinite(want))
     fin = np.isfinite(want)
     np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=0.05)
+
+
+def _series_pairs(f, u, prob) -> tuple[int, int]:
+    """The (line, pixel) pairs the fused kernel gives the Algorithm 916
+    series: the pixels with u^2 + a^2 < R2_SWITCH of each active MODE_HJERT
+    line whose float32 damping reaches HARRIS_A_MAX, from the glue's own
+    (B, T) tables and u as the plain twin forms it (d0 + dz c/lambda
+    rounded once, times 1/dnu).  The kernel forms u^2 + a^2 in float32, with
+    whichever contraction nvcc chose, so a pair within two float32 ulps of
+    R2_SWITCH may fall either side: returns (sure, possible), the count of
+    the pairs inside the radius less that band and with it."""
+    from mcalf_torch.models import torch_model as tm
+    from mcalf_torch.ops.faddeeva import HARRIS_A_MAX, R2_SWITCH
+
+    c = f.consts() if prob is None else tm.row_consts(f.consts(), prob)
+    dz = (u[:, c["u_zidx"]] - 0.5) * c["zspan"]
+    args = tm.fused_args(tm.cube_to_params_core(u, c), c, f.static, dz=dz)
+    dz, gain, av, dnu, d0, cw = (x.cpu() for x in args[:6])
+    T, P = d0.shape[-2:]
+    d0, cw = d0.reshape(-1, T, P), cw.reshape(-1, P)
+    hjert = (f.modes.cpu() == voigt_cuda.MODE_HJERT)[None, :]
+    b, t = (hjert & (av >= torch.tensor(HARRIS_A_MAX)) & (gain != 0)).nonzero(as_tuple=True)
+    q = torch.zeros_like(b) if prob is None else prob.cpu().long()[b]
+    s = (d0[q, t].double() + dz[b, t, None].double() * cw[q].double()).float()
+    x = (s * (1.0 / dnu[b, t])[:, None]).double()
+    a = av[b, t, None].double()
+    r2 = x * x + a * a  # exact: u and a are float32
+    band = 2 * np.spacing(np.float32(R2_SWITCH))
+    return int((r2 < R2_SWITCH - band).sum()), int((r2 < R2_SWITCH + band).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ("solo", "stacked"))
+@pytest.mark.parametrize("kind", ROW_KINDS)
+def test_series_evals_counts_the_pairs_that_take_the_series(narrow_cuda, kind, layout):
+    """``series_evals`` adds, per damped launch, the (line, pixel) pairs of
+    its mode-2 lines inside the 916 series' radius, counted on the host from
+    the same tables (none on rows without a damped line), and a captured
+    launch adds them at each replay and nothing while captured."""
+    f, u, prob, _ = _on_card(narrow_cuda, kind, layout)
+    sure, possible = _series_pairs(f, u, prob)
+    assert (possible == 0) if kind == "no_narrow_line" else (sure > 0)
+    before = voigt_cuda.series_evals
+    _cube(f, u, prob)
+    want = voigt_cuda.series_evals - before
+    assert sure <= want <= possible
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _cube(f, u, prob)  # warm-up on the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    before = voigt_cuda.series_evals
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        _cube(f, u, prob)
+    assert voigt_cuda.series_evals == before
+    for n in (1, 2):
+        g.replay()
+        assert voigt_cuda.series_evals == before + n * want

@@ -147,13 +147,14 @@ def test_debug_prints_the_counters_and_the_spans(fits):
 
 def test_debug_prints_the_fused_launches(fits):
     """One line of the fit's fused-kernel launches, those of them made
-    from the unit cube, their (row, transition) pairs and damped ones, and
-    the slice kernels' iterations: none on the CPU, whose glue and slice
-    bookkeeping run in PyTorch."""
+    from the unit cube, their (row, transition) pairs and damped ones, the
+    damped ones' pixels that took the 916 series, and the slice kernels'
+    iterations: none on the CPU, whose glue and slice bookkeeping run in
+    PyTorch."""
     lines = [ln for ln in fits["debug"]["out"].splitlines()
              if ln.startswith("[DEBUG]: fused-kernel launches")]
     assert lines == ["[DEBUG]: fused-kernel launches 0, 0 of them from the unit cube; "
-                     "lines 0, hjert_lines 0; slice_update launches 0"]
+                     "lines 0, hjert_lines 0, series_evals 0; slice_update launches 0"]
     assert "fused-kernel launches" not in fits["plain"]["out"]
 
 
